@@ -1,0 +1,79 @@
+// Device helpers shared by the point-cloud kernels.
+//
+// Distances are (dx*dx + dy*dy) + dz*dz with every product and sum rounded
+// on its own (__fmul_rn/__fadd_rn are never contracted into an FMA), which
+// is the order and rounding of the plain PyTorch versions in
+// mvpnet_torch/ops/reference.py, so kernel and plain version agree bit for
+// bit and their index choices are identical.
+#pragma once
+
+#include <climits>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define MVP_FULL_MASK 0xffffffffu
+
+__device__ __forceinline__ float mvp_sqdist(float ax, float ay, float az,
+                                            float bx, float by, float bz) {
+  const float dx = __fsub_rn(ax, bx);
+  const float dy = __fsub_rn(ay, by);
+  const float dz = __fsub_rn(az, bz);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
+}
+
+// Insert (d, j) into a list sorted by (distance, index). Candidates arrive in
+// ascending index order, so the strict '<' keeps an earlier (lower-index)
+// entry ahead of an equal later one: ties go to the lower index.
+template <int K>
+__device__ __forceinline__ void mvp_topk_insert(float (&bd)[K], int (&bi)[K],
+                                                float d, int j) {
+  if (d < bd[K - 1]) {
+    bd[K - 1] = d;
+    bi[K - 1] = j;
+#pragma unroll
+    for (int s = K - 1; s > 0; --s) {
+      if (bd[s] < bd[s - 1]) {
+        const float td = bd[s];
+        bd[s] = bd[s - 1];
+        bd[s - 1] = td;
+        const int ti = bi[s];
+        bi[s] = bi[s - 1];
+        bi[s - 1] = ti;
+      }
+    }
+  }
+}
+
+// Scan refs [n0, n1) of one batch row, staged through shared memory in tiles
+// of TILE points, into each thread's running top-K. Every thread of the
+// block must call it (it synchronizes); `active` marks threads that own a
+// query. Refs are read once per block from device memory; inside the tile
+// all lanes of a warp read the same point, a shared-memory broadcast.
+template <int K, int TILE>
+__device__ __forceinline__ void mvp_scan_refs(const float* __restrict__ r,
+                                              int n0, int n1, bool active,
+                                              float qx, float qy, float qz,
+                                              float (&bd)[K], int (&bi)[K],
+                                              float4* tile) {
+  for (int base = n0; base < n1; base += TILE) {
+    const int cnt = min(TILE, n1 - base);
+    __syncthreads();  // previous tile fully consumed
+    for (int t = threadIdx.x; t < cnt; t += blockDim.x) {
+      const float* p = r + 3 * (size_t)(base + t);
+      tile[t] = make_float4(p[0], p[1], p[2], 0.f);
+    }
+    __syncthreads();
+    if (active) {
+      for (int t = 0; t < cnt; ++t) {
+        const float4 p = tile[t];
+        mvp_topk_insert<K>(bd, bi, mvp_sqdist(qx, qy, qz, p.x, p.y, p.z),
+                           base + t);
+      }
+    }
+  }
+}
+
+extern "C" const char* mvp_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,199 @@
+"""NN building blocks: SharedMLP, ConvBNRelu, norm helpers.
+
+Counterpart of ``mvpnet_tpu/models/blocks.py``. Tensors stay channels-last
+at every block boundary, as in the JAX package: a 1x1 "conv" over points is
+a Linear over the trailing dim, and a 2D conv reads an (N, H, W, C) tensor
+through a channels-last NCHW view (no copy). Parameters are f32; each block
+casts its weights to the compute dtype at use (``dtype``, bf16 by default in
+the configs). Normalization runs in f32 and returns the compute dtype.
+
+Only inference is ported: BatchNorm uses its running statistics and raises
+in train mode, until the train-mode update (flax's biased running variance)
+is ported.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def torch_dtype(name) -> torch.dtype:
+    """Config dtype name ("bfloat16", ...) -> torch dtype."""
+    if isinstance(name, torch.dtype):
+        return name
+    return _DTYPES[str(name)]
+
+
+def variance_scaling_(weight: torch.Tensor, fan_in: int, scale: float, gen: torch.Generator) -> None:
+    """Truncated-normal init of flax's ``variance_scaling(scale, "fan_in",
+    "truncated_normal")``: kaiming_normal is scale 2, lecun_normal scale 1."""
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+def make_linear(c_in: int, c_out: int, *, bias: bool, gen: torch.Generator, scale: float = 2.0) -> nn.Linear:
+    lin = nn.utils.skip_init(nn.Linear, c_in, c_out, bias=bias)
+    variance_scaling_(lin.weight, c_in, scale, gen)
+    if bias:
+        with torch.no_grad():
+            lin.bias.zero_()
+    return lin
+
+
+def make_conv(c_in: int, c_out: int, kernel: int, *, bias: bool, gen: torch.Generator, scale: float = 2.0) -> nn.Conv2d:
+    conv = nn.utils.skip_init(nn.Conv2d, c_in, c_out, kernel, bias=bias)
+    variance_scaling_(conv.weight, c_in * kernel * kernel, scale, gen)
+    if bias:
+        with torch.no_grad():
+            conv.bias.zero_()
+    return conv
+
+
+def linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def same_pad(x_nhwc: torch.Tensor, k: int, s: int, value: float = 0.0) -> torch.Tensor:
+    """TF/flax 'SAME' padding of an NHWC tensor (asymmetric for even sizes)."""
+    h, w = x_nhwc.shape[1], x_nhwc.shape[2]
+    ph = max((math.ceil(h / s) - 1) * s + k - h, 0)
+    pw = max((math.ceil(w / s) - 1) * s + k - w, 0)
+    if ph == 0 and pw == 0:
+        return x_nhwc
+    return F.pad(x_nhwc, (0, 0, pw // 2, pw - pw // 2, ph // 2, ph - ph // 2), value=value)
+
+
+def conv2d_same(conv: nn.Conv2d, x_nhwc: torch.Tensor, stride: int, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nnx.Conv(padding="SAME")`` on an NHWC tensor, in ``dtype``."""
+    k = conv.weight.shape[-1]
+    x = same_pad(x_nhwc.to(dtype), k, stride).permute(0, 3, 1, 2)
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    y = F.conv2d(x, conv.weight.to(dtype), bias, stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm over the trailing channel of any (..., C) tensor,
+    pooling over all leading dims (flax ``nnx.BatchNorm`` on channels-last)."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "train-mode BatchNorm (flax's biased running-variance update) is not ported yet; call .eval()"
+            )
+        shape = x.shape
+        y = F.batch_norm(
+            x.reshape(-1, shape[-1]).float(),
+            self.running_mean,
+            self.running_var,
+            self.weight,
+            self.bias,
+            False,
+            0.0,
+            self.eps,
+        )
+        return y.reshape(shape).to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nnx.GroupNorm`` on a channels-last tensor: per sample, over all
+    non-batch dims within each of min(32, C) channel groups; eps 1e-6."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.groups = min(32, features)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.movedim(-1, 1).float(), self.groups, self.weight, self.bias, self.eps)
+        return y.movedim(1, -1).to(x.dtype)
+
+
+def make_norm(norm: str, features: int) -> nn.Module:
+    if norm == "batch":
+        return BatchNorm(features)
+    if norm == "group":
+        return GroupNorm(features)
+    if norm == "none":
+        return nn.Identity()
+    raise ValueError(f"unknown norm {norm!r}")
+
+
+def apply_norm(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Apply a norm layer to a (..., C) tensor (kept for the JAX API's shape)."""
+    return norm(x)
+
+
+class SharedMLP(nn.Module):
+    """Per-point MLP: Linear -> norm -> ReLU stacks over the trailing dim."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        channels: Sequence[int],
+        *,
+        norm: str = "batch",
+        dtype=torch.float32,
+        gen: torch.Generator,
+    ):
+        super().__init__()
+        self.dtype = torch_dtype(dtype)
+        layers, norms = [], []
+        c_in = in_channels
+        for c_out in channels:
+            layers.append(make_linear(c_in, c_out, bias=(norm == "none"), gen=gen))
+            norms.append(make_norm(norm, c_out))
+            c_in = c_out
+        self.layers = nn.ModuleList(layers)
+        self.norms = nn.ModuleList(norms)
+        self.out_channels = c_in
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for lin, norm in zip(self.layers, self.norms):
+            x = F.relu(apply_norm(norm, linear(lin, x, self.dtype)))
+        return x
+
+
+class ConvBNRelu(nn.Module):
+    """k x k conv ('SAME') -> norm -> optional ReLU on NHWC tensors."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        *,
+        kernel: int = 3,
+        stride: int = 1,
+        norm: str = "batch",
+        use_relu: bool = True,
+        dtype=torch.float32,
+        gen: torch.Generator,
+    ):
+        super().__init__()
+        self.dtype = torch_dtype(dtype)
+        self.stride = stride
+        self.use_relu = use_relu
+        self.conv = make_conv(in_channels, out_channels, kernel, bias=False, gen=gen)
+        self.norm = make_norm(norm, out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = apply_norm(self.norm, conv2d_same(self.conv, x, self.stride, self.dtype))
+        return F.relu(x) if self.use_relu else x

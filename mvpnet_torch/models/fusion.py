@@ -1,0 +1,90 @@
+"""2D-3D fusion: FeatureAggregation + MVPNet3D.
+
+Counterpart of ``mvpnet_tpu/models/fusion.py`` (its non-sharded branch):
+
+  images (B,V,H,W,3) -> UNet features (B*V,H,W,C2d) -> pixel feature cloud
+  (B, V*H*W, C2d) at the unprojected positions image_xyz -> for each chunk
+  point, its k=3 nearest pixels (the fusion kNN, a CUDA kernel on the card)
+  -> SharedMLP over concat(feature, relative xyz) -> max over k -> PN2SSG.
+
+Invalid pixels sit at the 1e6 sentinel from ``unproject_views``, so masking
+is positional. The space-sharded fusion (``fusion_mesh``) and the 2D remat
+switch of the JAX model are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from mvpnet_torch import ops
+from mvpnet_torch.config import AggregationConfig, ModelConfig
+from mvpnet_torch.models.blocks import SharedMLP
+from mvpnet_torch.models.pointnet2 import PN2SSG
+from mvpnet_torch.models.unet import UNetResNet34
+
+
+class FeatureAggregation(nn.Module):
+    """Fuse K gathered multi-view pixel features into one per-point feature."""
+
+    def __init__(self, in_channels: int, cfg: AggregationConfig, *, norm="batch", dtype=torch.float32, gen: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        c_in = in_channels + (3 if cfg.use_relative_xyz else 0)
+        self.mlp = SharedMLP(c_in, cfg.mlp_channels, norm=norm, dtype=dtype, gen=gen)
+        self.out_channels = self.mlp.out_channels
+
+    def forward(self, points, grouped_xyz, grouped_feat):
+        """points (B,N,3); grouped_xyz (B,N,K,3); grouped_feat (B,N,K,C)
+        -> fused per-point features (B, N, C')."""
+        if self.cfg.use_relative_xyz:
+            rel = grouped_xyz - points[:, :, None, :]
+            grouped_feat = torch.cat([grouped_feat, rel.to(grouped_feat.dtype)], dim=-1)
+        out = self.mlp(grouped_feat)  # (B, N, K, C')
+        if self.cfg.reduction == "max":
+            return out.amax(dim=2)
+        if self.cfg.reduction == "sum":
+            return out.sum(dim=2)
+        if self.cfg.reduction == "mean":
+            return out.mean(dim=2)
+        raise ValueError(f"unknown reduction {self.cfg.reduction!r}")
+
+
+class MVPNet3D(nn.Module):
+    """End-to-end 2D-3D fusion network for 3D semantic segmentation."""
+
+    def __init__(self, cfg: ModelConfig, *, gen: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        self.net_2d = UNetResNet34(cfg.unet, gen=gen)
+        self.aggregation = FeatureAggregation(
+            cfg.unet.feature_channels, cfg.aggregation, norm=cfg.pn2.norm, dtype=cfg.pn2.dtype, gen=gen
+        )
+        if cfg.pn2.in_channels != self.aggregation.out_channels:
+            raise ValueError(
+                "pn2.in_channels must equal the aggregation output "
+                f"({cfg.pn2.in_channels} != {self.aggregation.out_channels})"
+            )
+        self.net_3d = PN2SSG(cfg.pn2, gen=gen)
+
+    def forward(self, batch):
+        """batch: points (B,N,3), images (B,V,H,W,3) in [0, 1], image_xyz
+        (B,V,H,W,3) with invalid pixels at the sentinel.
+
+        Returns logits_3d (B, N, num_classes) f32 and logits_2d
+        (B, V, H, W, num_classes) f32."""
+        points = batch["points"]
+        images = batch["images"]
+        image_xyz = batch["image_xyz"]
+        B, V, H, W, _ = images.shape
+
+        feat2d, logits_2d = self.net_2d(images.reshape(B * V, H, W, 3))
+        pixel_feat = feat2d.reshape(B, V * H * W, feat2d.shape[-1])
+        pixel_xyz = image_xyz.reshape(B, V * H * W, 3)
+
+        _, knn_idx = ops.knn(points, pixel_xyz, self.cfg.aggregation.k)
+        grouped_feat = ops.group_points(pixel_feat, knn_idx)  # (B,N,K,C2d)
+        grouped_xyz = ops.group_points(pixel_xyz, knn_idx)  # (B,N,K,3)
+
+        fused = self.aggregation(points, grouped_xyz, grouped_feat)
+        logits_3d = self.net_3d(points, fused)
+        return logits_3d, logits_2d.reshape(B, V, H, W, -1)
