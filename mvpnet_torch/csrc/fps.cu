@@ -1,10 +1,17 @@
-// Farthest point sampling.
+// Farthest point sampling: two entry points over one step loop.
 //
-// Replaces the Pallas kernel mvpnet_tpu/ops/pallas/fps.py::
-// _fps_batched_kernel (pallas_call at fps.py:133); the same kernel covers the
-// per-row variant _fps_kernel (fps.py:174) once that is ported for its
-// shapes. On the slice's path it samples 8192 -> 1024 at SA1 and 1024 -> 256
-// at SA2 (and 256 -> 64, 64 -> 16 below the TPU's size threshold).
+// Replaces the Pallas kernels of mvpnet_tpu/ops/pallas/fps.py:
+//   * `fps` (fps_shared_kernel): _fps_batched_kernel (pallas_call at
+//     fps.py:133), the row in shared memory. On the chunk path it samples
+//     8192 -> 1024 at SA1 and 1024 -> 256 at SA2; on the whole-scene path at
+//     the high-resolution config, 8192 -> 2048 at SA2 and below.
+//   * `fps_perrow` (fps_perrow_kernel): _fps_kernel (pallas_call at fps.py:174
+//     in _fps_perrow), the row in device memory. On the whole-scene path it
+//     samples 4 x 102,400 -> 8192 at SA1.
+// The TPU splits the two by VMEM (_MAX_BN, fps.py:30); here the wrapper
+// (mvpnet_torch/ops/fps.py, `route`) sends a row to the shared-memory kernel
+// when its 16 bytes a point fit the block's shared memory (fps_shared_bytes),
+// and to the per-row kernel otherwise.
 //
 // Contract (mvpnet_tpu/ops/reference.py:67): the seed is the first valid
 // index (0 when unmasked or when no point is valid); each step takes
@@ -12,17 +19,20 @@
 // ties; invalid points start at -inf and so are never selected while a valid
 // point remains.
 //
-// Design: one block per batch row, up to 1024 threads. The row's points and
-// running distances live in dynamic shared memory as float4 (x, y, z, dist):
-// 16 B a point, 128 KB at N = 8192, which needs the opt-in above 48 KB. Each
-// step is a strided update, then a warp-shuffle argmax with the tie rule
+// Design: one block per batch row, up to 1024 threads. The row lives as
+// float4 (x, y, z, dist): in dynamic shared memory (16 B a point, 128 KB at
+// N = 8192, above the 48 KB default so it needs the opt-in), or, for a row
+// too long for that, in a (B, N, 4) scratch in device memory, where each step
+// reads every point with one coalesced 16-byte load (from L2: 1.6 MB a row at
+// N = 102,400) and writes back only the distances that shrank. Each step is
+// a strided update, then a warp-shuffle argmax with the tie rule
 // (d > bd) || (d == bd && i < bi) and a second pass over the warps' winners.
-// A row too long for shared memory keeps the same loop over device memory.
 //
 // Bound on the H100: the npoint - 1 steps are sequential and each is a
-// block-wide reduction, so at B = 1 the kernel runs on one SM and is bound
-// by the latency of the step loop, not by bytes or operations (10 f32
-// operations per point and step). chip_smoke.py computes both roofs from
+// block-wide reduction, so each row runs on one SM and the kernel is bound by
+// the latency of the step loop (and, per row, by one SM's share of L2
+// bandwidth in the per-row kernel), not by the card's bytes or operations (10
+// f32 operations per point and step). chip_smoke.py computes both roofs from
 // the run's shapes.
 #include "common.cuh"
 
@@ -50,23 +60,35 @@ __device__ __forceinline__ ArgMax warp_argmax(ArgMax v) {
   return v;
 }
 
-template <bool kShared>
-__global__ void fps_kernel(const float* __restrict__ pts,
-                           const uint8_t* __restrict__ mask, int N,
-                           int npoint, float* __restrict__ scratch,
-                           int* __restrict__ out) {
-  extern __shared__ float4 sp[];  // (x, y, z, dist) when kShared
+// Block-wide argmax; thread 0 gets the winner. `red` holds one entry a warp.
+__device__ __forceinline__ ArgMax block_argmax(ArgMax v, ArgMax* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  v = warp_argmax(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    const float ninf = -__int_as_float(0x7f800000);
+    v = lane < nwarps ? red[lane] : ArgMax{ninf, INT_MAX};
+    v = warp_argmax(v);
+  }
+  return v;
+}
+
+// The FPS of batch row blockIdx.x over `row`, N float4 (x, y, z, dist) in
+// shared or device memory that only this block touches.
+__device__ __forceinline__ void fps_row(const float* __restrict__ pts,
+                                        const uint8_t* __restrict__ mask,
+                                        int N, int npoint, float4* row,
+                                        int* __restrict__ out) {
   __shared__ ArgMax red[kMaxThreads / 32];
   __shared__ int s_last;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
   const float* p = pts + 3 * (size_t)b * N;
   const uint8_t* mk = mask ? mask + (size_t)b * N : nullptr;
-  float* dist = scratch + (size_t)b * N;
   int* o = out + (size_t)b * npoint;
   const float inf = __int_as_float(0x7f800000);
 
@@ -74,109 +96,105 @@ __global__ void fps_kernel(const float* __restrict__ pts,
   int first = INT_MAX;
   for (int i = tid; i < N; i += blockDim.x) {
     const bool valid = mk == nullptr || mk[i] != 0;
-    const float d = valid ? inf : -inf;
-    if (kShared) {
-      sp[i] = make_float4(p[3 * i], p[3 * i + 1], p[3 * i + 2], d);
-    } else {
-      dist[i] = d;
-    }
+    row[i] = make_float4(p[3 * i], p[3 * i + 1], p[3 * i + 2], valid ? inf : -inf);
     if (valid && i < first) first = i;
   }
-  // block min of `first` through the same argmax machinery (-index)
-  ArgMax f = warp_argmax(ArgMax{first == INT_MAX ? -inf : 0.f, first});
-  if (lane == 0) red[warp] = f;
-  __syncthreads();
-  if (warp == 0) {
-    ArgMax v = lane < nwarps ? red[lane] : ArgMax{-inf, INT_MAX};
-    v = warp_argmax(v);
-    if (lane == 0) {
-      s_last = v.i == INT_MAX ? 0 : v.i;
-      o[0] = s_last;
-    }
+  // block min of `first` through the same argmax machinery (lower index wins)
+  ArgMax f = block_argmax(ArgMax{first == INT_MAX ? -inf : 0.f, first}, red);
+  if (tid == 0) {
+    s_last = f.i == INT_MAX ? 0 : f.i;
+    o[0] = s_last;
   }
   __syncthreads();
   int last = s_last;
 
   for (int step = 1; step < npoint; ++step) {
-    float lx, ly, lz;
-    if (kShared) {
-      const float4 l = sp[last];
-      lx = l.x;
-      ly = l.y;
-      lz = l.z;
-    } else {
-      lx = p[3 * last];
-      ly = p[3 * last + 1];
-      lz = p[3 * last + 2];
-    }
+    const float4 l = row[last];
     ArgMax best{-inf, INT_MAX};
     for (int i = tid; i < N; i += blockDim.x) {
-      float px, py, pz, di;
-      if (kShared) {
-        const float4 v = sp[i];
-        px = v.x;
-        py = v.y;
-        pz = v.z;
-        di = v.w;
-      } else {
-        px = p[3 * i];
-        py = p[3 * i + 1];
-        pz = p[3 * i + 2];
-        di = dist[i];
-      }
-      const float nd = fminf(di, mvp_sqdist(px, py, pz, lx, ly, lz));
-      if (kShared) {
-        sp[i].w = nd;
-      } else {
-        dist[i] = nd;
-      }
+      const float4 v = row[i];
+      const float nd = fminf(v.w, mvp_sqdist(v.x, v.y, v.z, l.x, l.y, l.z));
+      if (nd < v.w) row[i].w = nd;
       best = better(best, ArgMax{nd, i});
     }
-    best = warp_argmax(best);
-    if (lane == 0) red[warp] = best;
-    __syncthreads();
-    if (warp == 0) {
-      ArgMax v = lane < nwarps ? red[lane] : ArgMax{-inf, INT_MAX};
-      v = warp_argmax(v);
-      if (lane == 0) {
-        s_last = v.i;
-        o[step] = v.i;
-      }
+    best = block_argmax(best, red);
+    if (tid == 0) {
+      s_last = best.i;
+      o[step] = best.i;
     }
     __syncthreads();
     last = s_last;
   }
 }
 
+__global__ void fps_shared_kernel(const float* __restrict__ pts,
+                                  const uint8_t* __restrict__ mask, int N,
+                                  int npoint, int* __restrict__ out) {
+  extern __shared__ float4 sp[];
+  fps_row(pts, mask, N, npoint, sp, out);
+}
+
+__global__ void fps_perrow_kernel(const float* __restrict__ pts,
+                                  const uint8_t* __restrict__ mask, int N,
+                                  int npoint, float4* __restrict__ scratch,
+                                  int* __restrict__ out) {
+  fps_row(pts, mask, N, npoint, scratch + (size_t)blockIdx.x * N, out);
+}
+
+int block_threads(int N) {
+  const int threads = ((N + 31) / 32) * 32;
+  return threads > kMaxThreads ? kMaxThreads : threads;
+}
+
 }  // namespace
 
-// pts (B, N, 3) f32 contiguous; mask (B, N) uint8 or null; scratch (B, N)
-// f32 (used only when a row does not fit in shared memory); out (B, npoint)
-// int32. Returns cudaError_t.
+// Dynamic shared memory a block of fps_shared_kernel may take on the current
+// device: the opt-in limit less the kernel's static shared memory. A row of
+// N points fits when 16 * N <= *bytes. Returns cudaError_t.
+extern "C" int fps_shared_bytes(int* bytes) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, fps_shared_kernel);
+  if (e != cudaSuccess) return e;
+  *bytes = optin - (int)attr.sharedSizeBytes;
+  return cudaSuccess;
+}
+
+// pts (B, N, 3) f32 contiguous; mask (B, N) uint8 or null; out (B, npoint)
+// int32. The row must fit in shared memory (see fps_shared_bytes), else
+// cudaErrorInvalidValue. Returns cudaError_t.
 extern "C" int fps(const float* pts, const uint8_t* mask, int B, int N,
-                   int npoint, float* scratch, int* out, void* stream) {
+                   int npoint, int* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || npoint <= 0) return cudaSuccess;
   if (N <= 0) return cudaErrorInvalidValue;
-  int threads = ((N + 31) / 32) * 32;
-  threads = threads > kMaxThreads ? kMaxThreads : threads;
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, fps_kernel<true>);
+  int avail = 0;
+  cudaError_t e = static_cast<cudaError_t>(fps_shared_bytes(&avail));
   if (e != cudaSuccess) return e;
   const size_t bytes = sizeof(float4) * (size_t)N;
-  if (bytes + attr.sharedSizeBytes <= (size_t)optin) {
-    e = cudaFuncSetAttribute(fps_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-    if (e != cudaSuccess) return e;
-    fps_kernel<true><<<B, threads, bytes, st>>>(pts, mask, N, npoint, scratch,
-                                                out);
-  } else {
-    fps_kernel<false><<<B, threads, 0, st>>>(pts, mask, N, npoint, scratch,
-                                             out);
-  }
+  if (bytes > (size_t)avail) return cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(fps_shared_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e != cudaSuccess) return e;
+  fps_shared_kernel<<<B, block_threads(N), bytes, st>>>(pts, mask, N, npoint,
+                                                        out);
+  return cudaGetLastError();
+}
+
+// pts (B, N, 3) f32 contiguous; mask (B, N) uint8 or null; scratch (B, N, 4)
+// f32, the rows as (x, y, z, dist); out (B, npoint) int32. Any N. Returns
+// cudaError_t.
+extern "C" int fps_perrow(const float* pts, const uint8_t* mask, int B, int N,
+                          int npoint, float* scratch, int* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || npoint <= 0) return cudaSuccess;
+  if (N <= 0) return cudaErrorInvalidValue;
+  fps_perrow_kernel<<<B, block_threads(N), 0, st>>>(
+      pts, mask, N, npoint, reinterpret_cast<float4*>(scratch), out);
   return cudaGetLastError();
 }

@@ -1,5 +1,8 @@
-"""Inference entry point of the port: the counterpart of
-``__graft_entry__.entry()``.
+"""Inference entry points of the port.
+
+``entry`` is the counterpart of ``__graft_entry__.entry()``, the chunk
+request path; ``scene_entry`` builds the whole-scene evaluator from a YAML
+config, by default the high-resolution config (BASELINE.json config #4).
 
 ``entry(device=None)`` builds the flagship MVPNet3D at the default
 ``Config()`` (full width, bf16 compute, B=1, N=8192, V=5 views of 120x160)
@@ -8,17 +11,23 @@ with seeded random weights and returns ``(forward, (model, batch))``:
 model — and returns the 3D logits (B, N, num_classes) f32. ``batch`` is the
 numpy-seeded example batch of ``__graft_entry__._example_batch``.
 
-It runs on CUDA unless the caller passes ``device="cpu"``; with no CUDA and
-no explicit device it raises.
+Both run on CUDA unless the caller passes ``device="cpu"``; with no CUDA and
+no explicit device they raise.
 """
 from __future__ import annotations
+
+import functools
+import os
 
 import numpy as np
 import torch
 
-from mvpnet_torch.config import Config
+from mvpnet_torch.config import Config, load_config
 from mvpnet_torch.models.build import build_model
 from mvpnet_torch.train.step import prepare_batch
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HIGHRES_CONFIG = os.path.join(_ROOT, "configs", "scannet", "mvpnet_3d_highres_64view.yaml")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -75,3 +84,22 @@ def entry(device=None, cfg: Config | None = None, seed: int = 0):
         W=cfg.data.image_width,
     )
     return forward, (model, batch)
+
+
+def scene_entry(device=None, cfg_path: str = HIGHRES_CONFIG, seed: int = 0):
+    """(evaluate, (model, cfg)) for whole-scene evaluation.
+
+    The config is the YAML file ``cfg_path`` (``load_config``); the model has
+    seeded random weights, on ``device``.
+    ``evaluate(scenes, fused=False, export_dir=None)`` runs
+    ``eval.whole_scene.evaluate_scenes`` with ``cfg.eval.batch_size`` chunk
+    windows per forward and returns its results (mIoU, accuracy, per-class
+    IoU)."""
+    from mvpnet_torch.eval.whole_scene import evaluate_scenes
+
+    dev = resolve_device(device)
+    cfg = load_config(cfg_path)
+    model, _, _ = build_model(cfg, seed=seed)
+    model = model.to(dev).eval()
+    evaluate = functools.partial(evaluate_scenes, model, cfg, batch_size=cfg.eval.batch_size)
+    return evaluate, (model, cfg)

@@ -15,6 +15,9 @@ behind one signature:
     used to hold the kernels against it (chip_smoke.py). Nothing falls back
     to it on its own.
 
+``farthest_point_sample`` launches ``fps`` for rows that fit a block's
+shared memory and ``fps_perrow`` for longer ones (``fps.route``).
+
 ``knn`` routes ref clouds of >= 2^15 points with >= 256 queries (the fusion
 kNN) to ``knn_bucketed`` and every other search to the brute kernel, as
 ``mvpnet_tpu/ops/pallas/knn_bucketed.py:86-96`` does.
@@ -36,6 +39,7 @@ _impl = "auto"
 KERNELS = {
     "knn_fusion": _knn_bucketed,
     "fps": _fps,
+    "fps_perrow": _fps.perrow,
     "ball_query": _bq,
     "knn": _knn,
 }
@@ -101,3 +105,23 @@ def three_nn_interpolate(dense_xyz, sparse_xyz, sparse_feat, eps: float = 1e-8):
     through the dispatched kNN (a kernel on the card)."""
     d2, idx = _knn_dispatch(dense_xyz, sparse_xyz, 3)
     return _ref.interpolate(d2, idx, sparse_feat, eps)
+
+
+class RawRefs:
+    """``knn_prepare`` result: the refs as they are. The Morton sort and tile
+    bounds of the JAX package's prepared cloud come with the gated fusion kNN
+    (not ported yet); until then ``knn_prepared`` searches the raw refs."""
+
+    def __init__(self, refs):
+        self.refs = refs
+
+
+def knn_prepare(refs) -> RawRefs:
+    """Prepare a ref cloud once for many ``knn_prepared`` queries."""
+    return RawRefs(refs)
+
+
+def knn_prepared(queries, prepared: RawRefs, k: int):
+    """kNN against a ``knn_prepare`` result; the contract of ``knn``, and the
+    same route (the fusion kernel for a large cloud on the card)."""
+    return _knn_dispatch(queries, prepared.refs, k)

@@ -104,6 +104,7 @@ def load(name: str) -> ctypes.CDLL:
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_INT_OUT = ctypes.POINTER(ctypes.c_int)
 _FLOAT = ctypes.c_float
 # C signatures of the kernels' entry points (see each csrc/<name>.cu)
 _SIGNATURES = {
@@ -111,7 +112,9 @@ _SIGNATURES = {
     ("knn_fusion", "knn_fusion"): (
         _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
     ),
-    ("fps", "fps"): (_PTR, _PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR),
+    ("fps", "fps"): (_PTR, _PTR, _INT, _INT, _INT, _PTR, _PTR),
+    ("fps", "fps_perrow"): (_PTR, _PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR),
+    ("fps", "fps_shared_bytes"): (_INT_OUT,),
     ("ballquery", "ball_query"): (
         _PTR, _PTR, _INT, _INT, _INT, _FLOAT, _INT, _PTR, _PTR, _PTR,
     ),

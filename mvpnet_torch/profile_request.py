@@ -30,12 +30,13 @@ from mvpnet_torch.entry import entry, example_batch
 # device kernels of the port's CUDA sources, by csrc file
 PORT_KERNELS = {
     "knn_fusion": ("knn_slice_kernel", "knn_merge_kernel"),
-    "fps": ("fps_kernel",),
+    "fps": ("fps_shared_kernel",),
+    "fps_perrow": ("fps_perrow_kernel",),
     "ball_query": ("ball_query_kernel",),
     "knn": ("knn_brute_kernel",),
 }
 FAMILIES = (
-    ("port kernels", r"knn_slice_kernel|knn_merge_kernel|fps_kernel|ball_query_kernel|knn_brute_kernel"),
+    ("port kernels", "|".join(s for symbols in PORT_KERNELS.values() for s in symbols)),
     ("convolution", r"conv|xmma|implicit|cudnn|winograd|fft"),
     ("matmul", r"gemm|cutlass|cublas|Kernel2|s\d+gemm|sm90_"),
     ("copy/layout", r"copy|Memcpy|Memset|nchw|nhwc|transpose|cat|pad"),
@@ -48,6 +49,40 @@ def _device_ms(evt) -> float:
     if us is None:
         us = evt.self_cuda_time_total
     return us / 1e3
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+
+
+def breakdown(prof, n: int, wall_ms: float, unit: str) -> dict:
+    """Device time of a profiled window of ``n`` units (requests, scenes):
+    busy ms (the sum of kernel time, one stream, so kernels do not overlap),
+    the idle share of ``wall_ms``, ms of each port kernel, ms by family, and
+    the kernels with the most device time, each per unit."""
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(_device_ms(e) for e in kernels)
+    per_kernel = {
+        name: sum(_device_ms(e) for e in kernels if any(s in e.key for s in symbols)) / n
+        for name, symbols in PORT_KERNELS.items()
+    }
+    families: dict[str, float] = {}
+    for e in kernels:
+        fam = next((f for f, pat in FAMILIES if re.search(pat, e.key, re.IGNORECASE)), "other")
+        families[fam] = families.get(fam, 0.0) + _device_ms(e) / n
+    top = sorted(kernels, key=_device_ms, reverse=True)[:12]
+    return {
+        f"device_busy_ms_per_{unit}": busy_ms / n,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        f"port_kernel_ms_per_{unit}": per_kernel,
+        f"family_ms_per_{unit}": families,
+        "top_kernels": [
+            {"name": e.key[:90], f"ms_per_{unit}": _device_ms(e) / n, f"calls_per_{unit}": e.count / n} for e in top
+        ],
+    }
 
 
 def main() -> None:
@@ -82,35 +117,14 @@ def main() -> None:
         t0 = time.perf_counter()
         traced_ms = run()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(_device_ms(e) for e in kernels)
     n = args.requests
-    per_kernel = {
-        name: sum(_device_ms(e) for e in kernels if any(s in e.key for s in symbols)) / n
-        for name, symbols in PORT_KERNELS.items()
-    }
-    families: dict[str, float] = {}
-    for e in kernels:
-        fam = next((f for f, pat in FAMILIES if re.search(pat, e.key, re.IGNORECASE)), "other")
-        families[fam] = families.get(fam, 0.0) + _device_ms(e) / n
-    top = sorted(kernels, key=_device_ms, reverse=True)[:12]
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
     print(json.dumps({
-        "card": card,
+        "card": card_line(),
         "requests": n,
         "request_ms": plain_ms,
         "request_ms_median": statistics.median(plain_ms),
         "profiled_request_ms": traced_ms,
-        "device_busy_ms_per_request": busy_ms / n,
-        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-        "port_kernel_ms_per_request": per_kernel,
-        "family_ms_per_request": families,
-        "top_kernels": [
-            {"name": e.key[:90], "ms_per_request": _device_ms(e) / n, "calls_per_request": e.count / n} for e in top
-        ],
+        **breakdown(prof, n, wall_ms, "request"),
     }))
 
 

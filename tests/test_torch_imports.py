@@ -67,7 +67,7 @@ def test_kernel_sources_ship_with_the_repo(name):
 
 
 def test_every_kernel_has_a_counted_wrapper():
-    assert set(ops.KERNELS) == {"knn_fusion", "fps", "ball_query", "knn"}
+    assert set(ops.KERNELS) == {"knn_fusion", "fps", "fps_perrow", "ball_query", "knn"}
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
 

@@ -257,10 +257,12 @@ def test_dispatch_modes_on_cpu(rng):
         ops.farthest_point_sample(r, 4)
     with pytest.raises(RuntimeError):
         ops.ball_query(q, r, 0.5, 4)
+    with pytest.raises(RuntimeError):
+        ops.knn_prepared(q, ops.knn_prepare(r), 3)
     with pytest.raises(ValueError):
         ops.set_impl("pallas")
     # plain versions launch nothing
-    assert ops.launch_counts() == {"knn_fusion": 0, "fps": 0, "ball_query": 0, "knn": 0}
+    assert ops.launch_counts() == {"knn_fusion": 0, "fps": 0, "fps_perrow": 0, "ball_query": 0, "knn": 0}
 
 
 @pytest.mark.parametrize(
@@ -294,3 +296,58 @@ def test_wrappers_reject_bad_arguments(rng, call):
     q, r = _t(_pts(rng, 1, 8)), _t(_pts(rng, 1, 64))
     with pytest.raises(ValueError):
         call(q, r)
+
+
+# ---------------------------------------------------------------------------
+# FPS rows too long for shared memory: the per-row kernel's contract
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_fps_long_rows_match_jax_perrow_kernel(rng, masked, monkeypatch):
+    """Rows of 20,000 points take fps_perrow on the card; their plain version
+    equals the JAX per-row Pallas kernel (_fps_perrow, forced by _MAX_BN = 1
+    as tests/test_pallas.py does) in TPU interpret mode, index for index."""
+    from mvpnet_tpu.ops.pallas import fps as pfps
+
+    pts = _pts(rng, 2, 20000)
+    mask = None
+    if masked:
+        mask = rng.random((2, 20000)) > 0.2
+        mask[0, :7] = False  # the seed moves to the first valid point
+    monkeypatch.setattr(pfps, "_MAX_BN", 1)
+    with pltpu.force_tpu_interpret_mode():
+        want = pfps.farthest_point_sample(jnp.asarray(pts), 256, valid_mask=None if mask is None else jnp.asarray(mask))
+    got = ops.farthest_point_sample(_t(pts), 256, valid_mask=None if mask is None else _t(mask))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert fps.route(20000, H100_SHARED_BYTES) == "fps_perrow"
+    if masked:
+        assert got[0, 0].item() == 7 and mask[np.arange(2)[:, None], got.numpy()].all()
+
+
+# dynamic shared memory a block may opt in to on an H100: 227 KB
+H100_SHARED_BYTES = 232448
+
+
+@pytest.mark.parametrize(
+    "n,kernel",
+    [(102400, "fps_perrow"), (16384, "fps_perrow"), (8192, "fps"), (1024, "fps"),
+     (H100_SHARED_BYTES // 16, "fps"), (H100_SHARED_BYTES // 16 + 1, "fps_perrow")],
+)
+def test_fps_route(n, kernel):
+    """SA1 at the high-resolution config (102,400) and at its reduced depth
+    (16,384) take the per-row kernel; chunk-path rows the shared-memory one."""
+    assert fps.route(n, H100_SHARED_BYTES) == kernel
+
+
+def test_knn_prepared_matches_knn(rng):
+    q, r = _pts(rng, 1, 300), _pts(rng, 1, 5000)
+    prepared = ops.knn_prepare(_t(r))
+    got_d, got_i = ops.knn_prepared(_t(q), prepared, 3)
+    want_d, want_i = ops.knn(_t(q), _t(r), 3)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+    from mvpnet_tpu import ops as jops
+
+    jd, ji = jops.knn_prepared(jnp.asarray(q), jops.knn_prepare(jnp.asarray(r)), 3)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(jd), atol=1e-5)
