@@ -40,9 +40,31 @@ Phases, each of which fails the run with a nonzero exit:
            per-row FPS): equal index-op outputs, argmax agreement > 0.999;
        (d) the fused estimator (evaluate_scenes(..., fused=True)): finite
            logits.
-Then it prints the {"kernels": [...]} line (five kernels: their launches,
-times and bounds on the scene path, and the chunk path's under
-"chunk_path"), the card line, and last {"ok": true, "device": {...}}.
+  6. train: train_entry() at the training config
+     (configs/scannet/mvpnet_3d_unet_resnet34_pn2ssg.yaml on synthetic scenes:
+     full width, bf16, B=8, N=8192, V=3 views of 120x160, random weights from
+     seed 0):
+       (a) 10 steps with grad_accum=1, then 10 with grad_accum=2: every step
+           must launch each kernel the expected number of times (per
+           microbatch) and give a finite loss; BN statistics and parameters
+           must move; a checkpoint save / disturb / restore must give the
+           model and optimizer back exactly; prints ms per step, chunks/s and
+           the peak memory;
+       (b) the gated kernels (rows 6 and 7) against their plain versions on
+           the first batch's fusion inputs (sentinel pixels included) at the
+           full shape, compared on the first 256 queries of each row, and
+           with masked refs, duplicate points and a batch of 2; each timed
+           beside the default fusion kernel at that shape; row 6's 8-row
+           subgroup gate is also checked and timed at the scene path's
+           fusion shape in 5 (b);
+       (c) the first step again from the same weights and batch with the
+           fusion kNN on each variant (demand, gated, resident): each
+           launches its kernel once, with equal fusion indices and loss.
+Then it prints the {"kernels": [...]} line (seven kernels: their launches,
+times and bounds on the scene path, the chunk path's under "chunk_path",
+the train path's fusion kNN under "train_path"; rows 6 and 7 at the train
+shape, row 6's subgroup gate under "scene_path"), the card line, and last
+{"ok": true, "device": {...}}.
 Without CUDA, or without the mvpnet_torch package beside it, it exits
 nonzero and prints no result.
 """
@@ -65,16 +87,26 @@ HBM_BYTES_PER_S = 3.35e12
 KERNEL_REPS = 30
 PLAIN_REPS = 5
 # per request: fusion kNN once, FPS / ball query / three-NN once per level
-EXPECTED_LAUNCHES = {"knn_fusion": 1, "fps": 4, "fps_perrow": 0, "ball_query": 4, "knn": 4}
+EXPECTED_LAUNCHES = {
+    "knn_fusion": 1, "fps": 4, "fps_perrow": 0, "ball_query": 4, "knn": 4, "knn_gated": 0, "knn_resident": 0,
+}
 # per scene forward at config #4: SA1's 102,400-point rows are too long for
 # shared memory and take the per-row FPS; SA2-SA4 the shared-memory one
-SCENE_LAUNCHES = {"knn_fusion": 1, "fps": 3, "fps_perrow": 1, "ball_query": 4, "knn": 4}
+SCENE_LAUNCHES = dict(EXPECTED_LAUNCHES, fps=3, fps_perrow=1)
+# per train step (per microbatch with grad_accum): the chunk path's forward;
+# the backward launches no kernel
+TRAIN_LAUNCHES = EXPECTED_LAUNCHES
+TRAIN_STEPS = 10
+# the fusion kNN's kernel for each ops.set_fusion_variant
+VARIANT_KERNEL = {"demand": "knn_fusion", "gated": "knn_gated", "resident": "knn_resident"}
 TPU_KERNELS = {
     "knn_fusion": ("mvpnet_torch/csrc/knn_fusion.cu", "mvpnet_tpu/ops/pallas/knn_bucketed.py:238"),
     "fps": ("mvpnet_torch/csrc/fps.cu", "mvpnet_tpu/ops/pallas/fps.py:83"),
     "ball_query": ("mvpnet_torch/csrc/ballquery.cu", "mvpnet_tpu/ops/pallas/ballquery.py:39"),
     "knn": ("mvpnet_torch/csrc/knn.cu", "mvpnet_tpu/ops/pallas/knn.py:76"),
     "fps_perrow": ("mvpnet_torch/csrc/fps.cu", "mvpnet_tpu/ops/pallas/fps.py:44"),
+    "knn_gated": ("mvpnet_torch/csrc/knn_gated.cu", "mvpnet_tpu/ops/pallas/knn_bucketed.py:142"),
+    "knn_resident": ("mvpnet_torch/csrc/knn_resident.cu", "mvpnet_tpu/ops/pallas/knn_bucketed.py:401"),
 }
 SCENE_SEED = 0
 SCENE_SHAPE = dict(num_points=300_000, num_frames=96, room=6.0)
@@ -252,7 +284,10 @@ def measure(torch, case: dict) -> dict:
     }
     if "check" in case:
         row["plain_shape"] = case["plain_shape"]
-        row["ms_on_plain_shape"] = cuda_ms(torch, check, reps)
+        if not case.get("rows_of_full_run"):  # else check is the full-shape run
+            row["ms_on_plain_shape"] = cuda_ms(torch, check, reps)
+    if "ops_all_pairs" in case:  # a gated kernel: the bound counts the pairs its gate let through
+        row["bound_ms_all_pairs"] = bound_ms(case["ops_all_pairs"], case["nbytes"])[0]
     print(f"  {case['name']} [{case['shape']}]: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain"
           f"{' [' + case['plain_shape'] + ']' if 'check' in case else ''}, "
           f"library {lib_ms}, bound {b_ms:.6f} ms ({b_by})", flush=True)
@@ -490,6 +525,36 @@ def scene_kernel_cases(torch, cfg, pts, pix):
     ]
 
 
+def scanned_ops(torch, mod, q, r, k) -> float:
+    """f32 operations of one gated kernel call on these inputs: 9 for every
+    query-ref pair its gate let through (the kernel counts them)."""
+    scanned = torch.zeros(1, dtype=torch.int64, device=q.device)
+    mod.knn(q, r, k, scanned=scanned)
+    return 9.0 * scanned.item()
+
+
+def gated_case(torch, name, q, r, k, shape, reps=KERNEL_REPS) -> dict:
+    """measure() case of a gated kernel (``name``: knn_gated or
+    knn_resident) at the full shape: it runs on every query (the visit order
+    depends on all of them), and the first FUSION_SUBSET queries of each row
+    are held against the plain version, which cannot sort full rows."""
+    from mvpnet_torch.ops import KERNELS
+
+    mod = KERNELS[name]
+    B, M, N = q.shape[0], q.shape[1], r.shape[1]
+    rows = torch.arange(FUSION_SUBSET, device=q.device)
+    return dict(
+        name=name, shape=shape, reps=reps,
+        kern=lambda: mod.knn(q, r, k),
+        check=lambda: tuple(x[:, :FUSION_SUBSET] for x in mod.knn(q, r, k)), rows_of_full_run=True,
+        plain=lambda: mod.plain(q, r, k, rows=rows),
+        plain_shape=f"{B}x{FUSION_SUBSET} queries (the first of each row) of the full search",
+        library=lambda: torch.cdist(q[:, :FUSION_SUBSET], r),
+        ops=scanned_ops(torch, mod, q, r, k), ops_all_pairs=9.0 * B * M * N,
+        nbytes=4.0 * (3 * B * M + 3 * B * N + 2 * B * M * k),
+    )
+
+
 def scene_phase(torch, evaluate, model, cfg):
     from mvpnet_torch import ops
     from mvpnet_torch.config import load_config
@@ -549,6 +614,12 @@ def scene_phase(torch, evaluate, model, cfg):
         pix = batch["image_xyz"].reshape(pts.shape[0], -1, 3).contiguous()
         del batch, samples
         rows = [measure(torch, case) for case in scene_kernel_cases(torch, cfg, pts, pix)]
+        # row 6's subgroup-gated body: refs >= 2^18 take tiles of 8192
+        k = cfg.model.aggregation.k
+        subgate = measure(torch, gated_case(
+            torch, "knn_gated", pts, pix, k,
+            f"{pts.shape[0]}x{pts.shape[1]} queries over {pix.shape[1]} refs, k={k}, 8-row subgroup gate", reps=3,
+        ))
         del pts, pix
     torch.cuda.empty_cache()
     for row in rows:
@@ -612,7 +683,209 @@ def scene_phase(torch, evaluate, model, cfg):
         "fused_launches": fused_counts,
         "fused_miou": fused_results["miou"],
     }
+    return summary, rows, subgate
+
+
+def train_steps(torch, ops, step, batches, model, optimizer, accum: int) -> dict:
+    """(a): TRAIN_STEPS steps of train_entry's step; each must launch every
+    kernel of the path the expected number of times and give a finite loss;
+    BN statistics and parameters must move."""
+    want = {name: n * accum for name, n in TRAIN_LAUNCHES.items()}
+    bn = [m for m in model.modules() if type(m).__name__ == "BatchNorm"]
+    stats0 = [m.running_mean.clone() for m in bn]
+    params0 = [p.detach().clone() for p in optimizer.params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, wait_ms, losses = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batch = next(batches)
+        t1 = time.perf_counter()
+        ops.reset_launch_counts()
+        m = step(batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        wait_ms.append((t1 - t0) * 1e3)
+        losses.append(loss)
+        if counts != want:
+            fail(f"train step {i} (grad_accum={accum}): kernel launches {counts}, expected {want}")
+        if not np.isfinite(loss):
+            fail(f"train step {i} (grad_accum={accum}): loss {loss}")
+    peak = torch.cuda.max_memory_allocated()
+    moved_bn = sum(not torch.equal(m.running_mean, s0) for m, s0 in zip(bn, stats0))
+    moved = sum(not torch.equal(p, p0) for p, p0 in zip(optimizer.params, params0))
+    if moved_bn < len(bn) or moved < 0.99 * len(params0):
+        fail(f"grad_accum={accum}: {moved_bn}/{len(bn)} BN running means and {moved}/{len(params0)} parameters moved")
+    B = next(iter(batch.values())).shape[0]
+    warm = statistics.median(step_ms[1:])
+    print(f"  grad_accum={accum}: {TRAIN_STEPS} steps, launches {counts} a step, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, step ms median {warm:.2f} (first {step_ms[0]:.2f}), data wait median "
+          f"{statistics.median(wait_ms):.2f} ms, {B / (warm + statistics.median(wait_ms)) * 1e3:.2f} chunks/s, "
+          f"peak memory {peak / 2**30:.2f} GiB; {moved_bn}/{len(bn)} BN running means and "
+          f"{moved}/{len(params0)} parameter tensors moved", flush=True)
+    return {
+        "grad_accum": accum, "step_ms": step_ms, "data_wait_ms": wait_ms, "losses": losses,
+        "chunks_per_s": B / ((warm + statistics.median(wait_ms)) / 1e3), "peak_memory_gib": peak / 2**30,
+        "launches_per_step": counts,
+    }
+
+
+def checkpoint_round_trip(torch, model, optimizer) -> None:
+    """Save, disturb every tensor, restore: the model and the optimizer come
+    back exactly."""
+    import shutil
+
+    from mvpnet_torch.train.checkpoint import Checkpointer
+
+    directory = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke_checkpoint")
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        ckpt = Checkpointer(directory, keep=1)
+        ckpt.save(optimizer.count - 1, model, optimizer)
+        want = {k: v.clone() for k, v in model.state_dict().items()}
+        want_opt = [s["exp_avg"].clone() for s in optimizer.inner.state.values()]
+        count = optimizer.count
+        with torch.no_grad():
+            for v in model.state_dict().values():
+                v.add_(1)
+            for s in optimizer.inner.state.values():
+                s["exp_avg"].add_(1.0)
+        optimizer.count += 5
+        if ckpt.restore(model, optimizer) != count - 1:
+            fail("checkpoint: restore found another step")
+        bad = [k for k, v in model.state_dict().items() if not torch.equal(v, want[k])]
+        opt_ok = all(torch.equal(s["exp_avg"], w) for s, w in zip(optimizer.inner.state.values(), want_opt))
+        if bad or not opt_ok or optimizer.count != count:
+            fail(f"checkpoint round trip: {len(bad)} model tensors differ, optimizer equal={opt_ok}")
+        print(f"  checkpoint round trip: {len(want)} model tensors and the optimizer state restored exactly", flush=True)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def variant_steps(torch, ops, cfg, model, init_state, batch, loss_fn, metric_fn) -> dict:
+    """(c): the first train step again from the same weights and batch, with
+    the fusion kNN on each variant: each launches its kernel once, and gives
+    the default route's fusion indices and loss."""
+    from mvpnet_torch.models.blocks import Dropout
+    from mvpnet_torch.train.solver import build_optimizer
+    from mvpnet_torch.train.step import make_train_step
+
+    train_step = make_train_step(cfg, loss_fn, metric_fn)
+    dropouts = [m for m in model.modules() if isinstance(m, Dropout)]
+    out, launches = {}, {}
+    try:
+        for variant, kernel in VARIANT_KERNEL.items():
+            model.load_state_dict(init_state)
+            for m in dropouts:  # the dropout masks start again from their seed
+                m.generator = None
+            optimizer = build_optimizer(cfg.solver, [p for p in model.parameters() if p.requires_grad])
+            ops.set_fusion_variant(variant)
+            ops.reset_launch_counts()
+            with recording(ops) as log:
+                loss = float(train_step(model, optimizer, batch, torch.Generator().manual_seed(0))["loss"])
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            want = dict(TRAIN_LAUNCHES, knn_fusion=0)
+            want[kernel] = 1
+            if counts != want:
+                fail(f"variant {variant}: kernel launches {counts}, expected {want}")
+            fusion_idx = next(o for n, o in log if n == "knn")[1]
+            out[variant] = (loss, fusion_idx)
+            launches[kernel] = counts[kernel]
+    finally:
+        ops.set_fusion_variant("demand")
+    loss0, idx0 = out["demand"]
+    for variant, (loss, idx) in out.items():
+        if not torch.equal(idx, idx0):
+            fail(f"variant {variant}: fusion indices differ from the default route's in {(idx != idx0).sum().item()} places")
+        if abs(loss - loss0) > 1e-6 * abs(loss0):
+            fail(f"variant {variant}: loss {loss} vs {loss0} on the default route")
+    print(f"  first step on each fusion variant: losses {[v[0] for v in out.values()]}, fusion indices equal, "
+          f"launches {launches}", flush=True)
+    return {"losses": {v: o[0] for v, o in out.items()}, "launches": launches}
+
+
+def train_phase(torch):
+    """The train path at the training config: (a) steps with grad_accum 1,
+    a checkpoint round trip, then steps with grad_accum 2; (b) rows 6 and 7
+    against their plain versions on the first batch's fusion inputs, timed
+    beside row 1; (c) the first step again on each fusion variant."""
+    from mvpnet_torch import ops
+    from mvpnet_torch.config import load_config
+    from mvpnet_torch.entry import TRAIN_CONFIG, TRAIN_OVERRIDES, train_entry
+    from mvpnet_torch.models.build import loss_and_metrics
+
+    summary = {"config": os.path.relpath(TRAIN_CONFIG, os.path.dirname(os.path.abspath(__file__))),
+               "overrides": TRAIN_OVERRIDES}
+    cfg = load_config(TRAIN_CONFIG, TRAIN_OVERRIDES)
+    step, (model, optimizer, batches) = train_entry(cfg=cfg, seed=0)
+    try:
+        first = next(batches)
+        init_state = {k: v.clone() for k, v in model.state_dict().items()}
+        summary["steps"] = [train_steps(torch, ops, step, batches, model, optimizer, 1)]
+    finally:
+        batches.close()
+    checkpoint_round_trip(torch, model, optimizer)
+    summary["variants"] = variant_steps(torch, ops, cfg, model, init_state, first, *loss_and_metrics(cfg))
+    rows = train_kernel_rows(torch, cfg, first)
+    rows["knn_fusion"]["launches"] = summary["steps"][0]["launches_per_step"]["knn_fusion"]
+    for name in ("knn_gated", "knn_resident"):
+        rows[name]["launches"] = summary["variants"]["launches"][name]
+    del step, model, optimizer, batches, init_state, first
+    torch.cuda.empty_cache()
+
+    cfg = load_config(TRAIN_CONFIG, TRAIN_OVERRIDES + ["train.grad_accum=2"])
+    step, (model, optimizer, batches) = train_entry(cfg=cfg, seed=0)
+    try:
+        summary["steps"].append(train_steps(torch, ops, step, batches, model, optimizer, 2))
+    finally:
+        batches.close()
     return summary, rows
+
+
+def train_kernel_rows(torch, cfg, batch) -> dict:
+    """(b): rows 6 and 7 on the batch's fusion inputs (the synthetic depth's
+    holes are sentinel pixels), with masked refs, duplicate points and a
+    batch of 2, then timed beside row 1 at the train shape."""
+    from mvpnet_torch.ops import KERNELS, reference
+    from mvpnet_torch.train.step import prepare_batch
+
+    with torch.no_grad():
+        mb = prepare_batch(cfg, batch, training=True, generator=torch.Generator().manual_seed(0))
+        pts = mb["points"].float().contiguous()
+        pix = mb["image_xyz"].reshape(pts.shape[0], -1, 3).contiguous()
+        del mb
+        k = cfg.model.aggregation.k
+        B, M, N = pts.shape[0], pts.shape[1], pix.shape[1]
+        print(f"  fusion inputs: {B}x{M} points, {N} pixels a row, "
+              f"{(pix.abs() >= 1e5).any(-1).float().mean().item():.4f} of them sentinels", flush=True)
+        g = torch.Generator(device=pts.device).manual_seed(2)
+        masked = reference.mask_points(pix, torch.rand(pix.shape[:2], generator=g, device=pix.device) > 0.2)
+        dup = pix.clone()
+        dup[:, N // 2 : 2 * (N // 2)] = pix[:, : N // 2]
+        rows = torch.arange(FUSION_SUBSET, device=pts.device)
+        for name in ("knn_gated", "knn_resident"):
+            mod = KERNELS[name]
+            for label, q, r in [("masked refs", pts, masked), ("duplicate points", pts, dup),
+                                ("batch of 2", pts[:2].contiguous(), pix[:2].contiguous())]:
+                got = tuple(x[:, :FUSION_SUBSET] for x in mod.knn(q, r, k))
+                same(torch, f"{name} {label}", got, mod.plain(q, r, k, rows=rows))
+                print(f"  {name} {label}: equal", flush=True)
+        del masked, dup
+        shape = f"{B}x{M} queries over {N} refs, k={k}"
+        q_sub = pts[:, :FUSION_SUBSET].contiguous()
+        fusion = KERNELS["knn_fusion"]
+        out = {name: measure(torch, gated_case(torch, name, pts, pix, k, shape)) for name in ("knn_gated", "knn_resident")}
+        out["knn_fusion"] = measure(torch, dict(
+            name="knn_fusion", shape=shape, kern=lambda: fusion.knn(pts, pix, k),
+            check=lambda: fusion.knn(q_sub, pix, k), plain=lambda: reference.knn(q_sub, pix, k),
+            plain_shape=f"{B}x{FUSION_SUBSET} queries (the first of each row) over {N} refs",
+            library=lambda: torch.cdist(q_sub, pix),
+            ops=9.0 * B * M * N, nbytes=4.0 * (3 * B * M + 3 * B * N + 2 * B * M * k),
+        ))
+    return out
 
 
 def main() -> None:
@@ -647,15 +920,26 @@ def main() -> None:
     torch.cuda.empty_cache()
     print("scene phase:", flush=True)
     evaluate, (scene_model, scene_cfg) = scene_entry()
-    scene_summary, rows = scene_phase(torch, evaluate, scene_model, scene_cfg)
+    scene_summary, rows, subgate = scene_phase(torch, evaluate, scene_model, scene_cfg)
+    del evaluate, scene_model
+    torch.cuda.empty_cache()
+    print("train phase:", flush=True)
+    train_summary, train_rows = train_phase(torch)
+
+    def path(row):  # a row's numbers, nested under another row of the same kernel
+        return {k: v for k, v in row.items() if k not in ("name", "route", "source", "replaces")}
+
     chunk = {row["name"]: row for row in chunk_rows}
     for row in rows:  # the chunk path's numbers of the kernels it runs
         if row["name"] in chunk:
-            row["chunk_path"] = {
-                k: v for k, v in chunk[row["name"]].items() if k not in ("name", "route", "source", "replaces")
-            }
+            row["chunk_path"] = path(chunk[row["name"]])
+    next(row for row in rows if row["name"] == "knn_fusion")["train_path"] = path(train_rows["knn_fusion"])
+    subgate["launches"] = 0  # the scene path's fusion kNN is row 1
+    train_rows["knn_gated"]["scene_path"] = path(subgate)
+    rows += [train_rows["knn_gated"], train_rows["knn_resident"]]
     print(json.dumps({"slice": summary}), flush=True)
     print(json.dumps({"scene": scene_summary}), flush=True)
+    print(json.dumps({"train": train_summary}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

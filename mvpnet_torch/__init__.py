@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of mvpnet_tpu: the MVPNet3D chunk-inference path.
+"""PyTorch/CUDA port of mvpnet_tpu: MVPNet3D chunk inference, whole-scene
+evaluation and training.
 
 Runs on an NVIDIA H100 through hand-written CUDA kernels (``csrc/``) and on
 the CPU, through the kernels' plain PyTorch versions, when the caller asks.

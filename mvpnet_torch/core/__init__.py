@@ -1,1 +1,1 @@
-"""Geometry: camera model and depth unprojection."""
+"""Geometry: camera model, depth unprojection, train-time augmentation."""

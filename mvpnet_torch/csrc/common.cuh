@@ -45,6 +45,19 @@ __device__ __forceinline__ void mvp_topk_insert(float (&bd)[K], int (&bi)[K],
   }
 }
 
+// Max of v over the block, returned to every thread. `red` holds one float a
+// warp; blockDim.x is a multiple of 32, and every thread must call it.
+__device__ __forceinline__ float mvp_block_max(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(MVP_FULL_MASK, v, o));
+  __syncthreads();  // earlier readers of red are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) v = fmaxf(v, red[w]);
+  return v;
+}
+
 // Scan refs [n0, n1) of one batch row, staged through shared memory in tiles
 // of TILE points, into each thread's running top-K. Every thread of the
 // block must call it (it synchronizes); `active` marks threads that own a

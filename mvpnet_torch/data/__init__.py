@@ -1,2 +1,2 @@
 """Host data path: synthetic scenes, native grid index, view selection,
-chunk building."""
+chunk building, the chunk dataset and its device prefetcher."""

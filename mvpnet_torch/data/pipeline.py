@@ -1,22 +1,28 @@
-"""Host-side chunk building.
+"""Chunk dataset and device prefetch.
 
-The port's copy of the host functions of ``mvpnet_tpu/data/pipeline.py``:
-chunk point sampling, greedy view selection and array slicing, in NumPy.
-What runs on the device (dequantization, the lift, the fusion kNN) is
-``mvpnet_torch.train.step.prepare_batch`` and the model. The chunk dataset,
-its prefetcher and the dataset factory are not ported yet.
+The port's counterpart of ``mvpnet_tpu/data/pipeline.py``:
+  host (this module): chunk point sampling, greedy view selection, array
+    slicing, in NumPy, in a small thread pool;
+  device (``mvpnet_torch.train.step.prepare_batch`` and the model):
+    dequantization, the lift, augmentation, the fusion kNN.
 
 Samples are fixed-shape: N points sampled with replacement, V views, HxW
-images.
+images. Batches cross to the device through ``PrefetchIterator``: pinned
+host memory, ``non_blocking`` copies, the next batch's copy issued before
+the current one is handed out; with ``pack`` the whole batch is one byte
+buffer and one copy.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import queue
+import threading
+from typing import Iterator, Sequence
 
 import numpy as np
+import torch
 
 from mvpnet_torch.config import DataConfig
-from mvpnet_torch.data.synthetic import Scene
+from mvpnet_torch.data.synthetic import Scene, make_scene
 from mvpnet_torch.data.view_select import select_views_for_chunk
 
 
@@ -132,3 +138,218 @@ def make_chunk_sample(
 
 def collate(samples: Sequence[dict]) -> dict:
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+class ChunkDataset:
+    """Iterable over batched chunk samples from a set of scenes."""
+
+    def __init__(self, scenes: Sequence[Scene], cfg: DataConfig, *, batch_size: int, training: bool = True,
+                 seed: int | None = None):
+        if not len(scenes):
+            raise ValueError("ChunkDataset needs at least one scene")
+        # keep lazy stores (data/scannet.SceneStore) as they are; list()
+        # would load every scene
+        self.scenes = scenes if hasattr(scenes, "__getitem__") else list(scenes)
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.training = training
+        self._seed = cfg.seed if seed is None else seed
+        self.rng = np.random.default_rng(self._seed)
+
+    def sample(self, rng: np.random.Generator | None = None) -> dict:
+        rng = rng if rng is not None else self.rng
+        scene = self.scenes[rng.integers(len(self.scenes))]
+        V = self.cfg.num_views_train if self.training else self.cfg.num_views_eval
+        s = make_chunk_sample(scene, self.cfg, num_views=V, rng=rng)
+        # chunk batches never consume these on the device (point colors are
+        # an ablation input, point_idx a host-side eval artifact)
+        s.pop("point_idx", None)
+        if not self.cfg.include_colors:
+            s.pop("colors", None)
+        return s
+
+    def __iter__(self) -> Iterator[dict]:
+        while True:
+            yield collate([self.sample() for _ in range(self.batch_size)])
+
+    def worker_iter(self, worker_id: int) -> Iterator[dict]:
+        """Independent infinite batch stream for one prefetch worker: a private
+        Generator from (seed, worker_id), no shared state."""
+        rng = np.random.default_rng(np.random.SeedSequence([self._seed, worker_id]))
+        while True:
+            yield collate([self.sample(rng) for _ in range(self.batch_size)])
+
+
+def build_dataset(cfg: DataConfig, *, batch_size: int, training: bool, seed: int = 0) -> ChunkDataset:
+    """``cfg.name == "synthetic"``: procedural scenes; ``"scannet"``:
+    preprocessed scenes from ``cfg.root`` (``data/scannet.py``), loaded
+    lazily. Only chunk sampling is ported (``sampling == "chunks"``)."""
+    if cfg.sampling != "chunks":
+        raise NotImplementedError(f"sampling {cfg.sampling!r} is not ported yet (frame-level 2D data; ROADMAP.md Queue 1)")
+    if cfg.name == "synthetic":
+        n_scenes = cfg.synthetic_scenes if training else max(cfg.synthetic_scenes // 2, 2)
+        scenes = [
+            make_scene(
+                # train and val seeds interleave (even train, odd val), so
+                # the splits stay disjoint for any scene count
+                seed=seed * 1_000_000 + 2 * i + (0 if training else 1),
+                height=cfg.image_height,
+                width=cfg.image_width,
+                num_classes=cfg.num_classes,
+                num_objects=cfg.synthetic_objects,
+                ignore_label=cfg.ignore_label,
+            )
+            for i in range(n_scenes)
+        ]
+    elif cfg.name == "scannet":
+        from mvpnet_torch.data.scannet import load_scenes
+
+        scenes = load_scenes(cfg.root, split="train" if training else "val", lazy=True, capacity=cfg.cache_scenes)
+    else:
+        raise ValueError(f"unknown dataset {cfg.name!r}")
+    return ChunkDataset(scenes, cfg, batch_size=batch_size, training=training, seed=seed)
+
+
+def pack_batch(batch: dict):
+    """Concatenate every array's bytes into one uint8 vector (each start
+    8-byte aligned) with its layout ``((key, dtype str, shape, offset,
+    nbytes), ...)``; non-array values come back apart (``extras``)."""
+    layout, parts, extras = [], [], {}
+    off = 0
+    for k in sorted(batch):
+        v = batch[k]
+        if not isinstance(v, np.ndarray):
+            extras[k] = v
+            continue
+        raw = np.ascontiguousarray(v).reshape(-1).view(np.uint8)
+        pad = (-off) % 8
+        if pad:
+            parts.append(np.zeros(pad, np.uint8))
+            off += pad
+        layout.append((k, v.dtype.str, v.shape, off, raw.size))
+        parts.append(raw)
+        off += raw.size
+    packed = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+    return packed, tuple(layout), extras
+
+
+def unpack_batch(packed: torch.Tensor, layout) -> dict:
+    """Views of a packed uint8 tensor (on any device) as the arrays of
+    ``layout``, with their dtypes and shapes; no copy."""
+    out = {}
+    for k, dstr, shape, off, size in layout:
+        dt = torch.from_numpy(np.zeros(0, np.dtype(dstr))).dtype
+        out[k] = packed[off : off + size].view(dt).reshape(shape)
+    return out
+
+
+class _WorkerError:
+    """A producer thread's exception, carried to the consumer."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+_END = object()  # a producer's stream is exhausted
+
+
+class PrefetchIterator:
+    """Background-thread batch producer and consumer-side device copy.
+
+    Worker threads build host batches only. The consumer (``__next__``)
+    copies a batch to ``device`` from pinned memory with ``non_blocking``
+    copies and issues the next batch's copy before it returns, so the copy
+    overlaps the caller's step (a copy and the step that reads it run in
+    order on the current stream). With ``pack`` a batch is one buffer and
+    one copy (``pack_batch``). The source gives each thread its own batch
+    stream (``source.worker_iter(worker_id)``, as ``ChunkDataset`` does), so
+    the threads share no state. A producer's exception is raised by
+    ``__next__``; ``close()`` stops and joins the threads."""
+
+    def __init__(self, source, prefetch: int = 2, num_threads: int = 4, device=None, pack: bool = False):
+        self._queue: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
+        self._device = torch.device(device) if device is not None else torch.device("cpu")
+        self._pack = pack
+        self._ready = None  # the transferred-ahead batch
+        self._ready_exc = None  # a failure of that transfer, raised next call
+        self._stop = threading.Event()
+        self._threads = [
+            threading.Thread(target=self._worker, args=(source.worker_iter(i),), daemon=True)
+            for i in range(num_threads)
+        ]
+        for t in self._threads:
+            t.start()
+
+    def _enqueue(self, item) -> None:
+        # a bounded put that gives up once closed, so a worker blocked on a
+        # full queue cannot outlive close()
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def _worker(self, batches):
+        try:
+            while not self._stop.is_set():
+                self._enqueue(next(batches))
+        except StopIteration:
+            self._enqueue(_END)
+        except BaseException as e:  # carried to the consumer
+            self._enqueue(_WorkerError(e))
+
+    def __iter__(self):
+        return self
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self._device.type == "cuda":
+            return t.pin_memory().to(self._device, non_blocking=True)
+        return t.to(self._device)
+
+    def _transfer(self, item):
+        if item is _END or isinstance(item, _WorkerError):
+            return item
+        if self._pack:
+            packed, layout, extras = pack_batch(item)
+            out = unpack_batch(self._to_device(packed), layout)
+            out.update(extras)
+            return out
+        return {k: self._to_device(v) if isinstance(v, np.ndarray) else v for k, v in item.items()}
+
+    def __next__(self):
+        if self._ready_exc is not None:
+            exc, self._ready_exc = self._ready_exc, None
+            self.close()
+            raise exc
+        if self._ready is not None:
+            item, self._ready = self._ready, None
+        else:
+            item = self._transfer(self._queue.get())
+        if item is _END:
+            raise StopIteration
+        if isinstance(item, _WorkerError):
+            self.close()
+            raise RuntimeError("prefetch worker failed") from item.exc
+        # issue the next batch's copy now; a failure there must not lose the
+        # current batch, so it is raised by the next call
+        try:
+            self._ready = self._transfer(self._queue.get_nowait())
+        except queue.Empty:
+            pass
+        except BaseException as e:
+            self._ready_exc = e
+        return item
+
+    def close(self) -> None:
+        self._stop.set()
+        self._ready = None
+        # drain, so producers blocked on put() see the stop event
+        while True:
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                break
+        for t in self._threads:
+            t.join(timeout=2.0)

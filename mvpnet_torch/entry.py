@@ -11,7 +11,11 @@ with seeded random weights and returns ``(forward, (model, batch))``:
 model — and returns the 3D logits (B, N, num_classes) f32. ``batch`` is the
 numpy-seeded example batch of ``__graft_entry__._example_batch``.
 
-Both run on CUDA unless the caller passes ``device="cpu"``; with no CUDA and
+``train_entry`` builds the training path at the training config
+(``configs/scannet/mvpnet_3d_unet_resnet34_pn2ssg.yaml`` on synthetic
+scenes by default).
+
+All run on CUDA unless the caller passes ``device="cpu"``; with no CUDA and
 no explicit device they raise.
 """
 from __future__ import annotations
@@ -28,6 +32,10 @@ from mvpnet_torch.train.step import prepare_batch
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HIGHRES_CONFIG = os.path.join(_ROOT, "configs", "scannet", "mvpnet_3d_highres_64view.yaml")
+TRAIN_CONFIG = os.path.join(_ROOT, "configs", "scannet", "mvpnet_3d_unet_resnet34_pn2ssg.yaml")
+# ScanNet is not in the repository: the training config runs on synthetic
+# scenes, from random weights
+TRAIN_OVERRIDES = ["data.name=synthetic"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -103,3 +111,39 @@ def scene_entry(device=None, cfg_path: str = HIGHRES_CONFIG, seed: int = 0):
     model = model.to(dev).eval()
     evaluate = functools.partial(evaluate_scenes, model, cfg, batch_size=cfg.eval.batch_size)
     return evaluate, (model, cfg)
+
+
+def train_entry(device=None, cfg: Config | None = None, seed: int = 0):
+    """(step, (model, optimizer, batches)) for the training path.
+
+    ``cfg`` defaults to the training config on synthetic scenes (full width,
+    bf16 compute, B=8, N=8192, V=3 views of 120x160); the model has seeded
+    random weights, in train mode, on ``device``. ``batches`` is the
+    ``PrefetchIterator`` over the config's training set (``close()`` it).
+    ``step()`` takes the next batch and runs one ``make_train_step`` step
+    (augmentation drawn from a generator seeded with ``seed``) and returns
+    its metrics; ``step(batch)`` runs it on a given device batch."""
+    from mvpnet_torch.data.pipeline import PrefetchIterator, build_dataset
+    from mvpnet_torch.train.checkpoint import trainable_parameters
+    from mvpnet_torch.train.loop import check_single_device, set_train_mode
+    from mvpnet_torch.train.solver import build_optimizer
+    from mvpnet_torch.train.step import make_train_step
+
+    dev = resolve_device(device)
+    cfg = cfg or load_config(TRAIN_CONFIG, TRAIN_OVERRIDES)
+    check_single_device(cfg)
+    model, loss_fn, metric_fn = build_model(cfg, seed=seed)
+    model = model.to(dev)
+    set_train_mode(model, cfg)
+    optimizer = build_optimizer(cfg.solver, trainable_parameters(model, cfg.model.freeze_2d))
+    train_step = make_train_step(cfg, loss_fn, metric_fn)
+    data = build_dataset(cfg.data, batch_size=cfg.train.batch_size, training=True, seed=seed)
+    batches = PrefetchIterator(
+        data, prefetch=cfg.data.prefetch, num_threads=cfg.data.num_workers, device=dev, pack=cfg.data.packed_transfer
+    )
+    generator = torch.Generator().manual_seed(seed)
+
+    def step(batch: dict | None = None) -> dict:
+        return train_step(model, optimizer, next(batches) if batch is None else batch, generator)
+
+    return step, (model, optimizer, batches)

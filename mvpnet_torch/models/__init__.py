@@ -1,4 +1,4 @@
-"""Networks of the MVPNet3D inference path."""
+"""Networks of MVPNet3D: UNet-ResNet34, PN2SSG and the fusion model."""
 from mvpnet_torch.models.build import build_model  # noqa: F401
 from mvpnet_torch.models.fusion import FeatureAggregation, MVPNet3D  # noqa: F401
 from mvpnet_torch.models.pointnet2 import PN2SSG  # noqa: F401

@@ -7,9 +7,10 @@ through a channels-last NCHW view (no copy). Parameters are f32; each block
 casts its weights to the compute dtype at use (``dtype``, bf16 by default in
 the configs). Normalization runs in f32 and returns the compute dtype.
 
-Only inference is ported: BatchNorm uses its running statistics and raises
-in train mode, until the train-mode update (flax's biased running variance)
-is ported.
+BatchNorm follows flax's ``nnx.BatchNorm`` (momentum 0.9, eps 1e-5): in
+train mode it normalizes with the batch statistics (biased variance, in f32,
+over all leading dims) and moves its running statistics by
+``ra = 0.9 * ra + 0.1 * stat``, with the biased variance too.
 """
 from __future__ import annotations
 
@@ -81,33 +82,39 @@ def conv2d_same(conv: nn.Conv2d, x_nhwc: torch.Tensor, stride: int, dtype: torch
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the trailing channel of any (..., C) tensor,
-    pooling over all leading dims (flax ``nnx.BatchNorm`` on channels-last)."""
+    """BatchNorm over the trailing channel of any (..., C) tensor, pooling
+    over all leading dims (flax ``nnx.BatchNorm`` on channels-last).
+
+    ``track_running_stats = False`` keeps the running statistics as they are
+    in train mode (the recomputed forward of a rematerialized 2D net,
+    ``models/fusion.py``)."""
+
+    momentum = 0.9  # flax's: ra = momentum * ra + (1 - momentum) * stat
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.track_running_stats = True
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm (flax's biased running-variance update) is not ported yet; call .eval()"
-            )
         shape = x.shape
-        y = F.batch_norm(
-            x.reshape(-1, shape[-1]).float(),
-            self.running_mean,
-            self.running_var,
-            self.weight,
-            self.bias,
-            False,
-            0.0,
-            self.eps,
-        )
+        x2 = x.reshape(-1, shape[-1]).float()
+        if self.training:
+            # normalize with the biased batch variance (F.batch_norm does);
+            # its running update would take the unbiased one, so the update
+            # is computed here
+            y = F.batch_norm(x2, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            if self.track_running_stats:
+                with torch.no_grad():
+                    var, mean = torch.var_mean(x2, dim=0, correction=0)
+                    self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+                    self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        else:
+            y = F.batch_norm(x2, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
         return y.reshape(shape).to(x.dtype)
 
 
@@ -125,6 +132,30 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.group_norm(x.movedim(-1, 1).float(), self.groups, self.weight, self.bias, self.eps)
         return y.movedim(1, -1).to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """flax ``nnx.Dropout``: in train mode keep each value with probability
+    1 - rate and scale kept values by 1 / (1 - rate). The mask draws from an
+    explicit ``torch.Generator`` (``generator``, on the input's device),
+    seeded with 0 at the first train-mode call; setting it to None starts
+    the masks again."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        if self.generator is None or self.generator.device != x.device:
+            self.generator = torch.Generator(device=x.device).manual_seed(0)
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def make_norm(norm: str, features: int) -> nn.Module:

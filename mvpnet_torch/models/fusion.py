@@ -8,17 +8,22 @@ Counterpart of ``mvpnet_tpu/models/fusion.py`` (its non-sharded branch):
   -> SharedMLP over concat(feature, relative xyz) -> max over k -> PN2SSG.
 
 Invalid pixels sit at the 1e6 sentinel from ``unproject_views``, so masking
-is positional. The space-sharded fusion (``fusion_mesh``) and the 2D remat
-switch of the JAX model are not ported yet.
+is positional. ``remat_2d`` (set by ``models.build`` from
+``cfg.train.remat``) recomputes the 2D net in the backward pass through
+``torch.utils.checkpoint`` instead of storing its activations. The
+space-sharded fusion (``fusion_mesh``) of the JAX model is not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mvpnet_torch import ops
 from mvpnet_torch.config import AggregationConfig, ModelConfig
-from mvpnet_torch.models.blocks import SharedMLP
+from mvpnet_torch.models.blocks import BatchNorm, SharedMLP
 from mvpnet_torch.models.pointnet2 import PN2SSG
 from mvpnet_torch.models.unet import UNetResNet34
 
@@ -65,6 +70,23 @@ class MVPNet3D(nn.Module):
                 f"({cfg.pn2.in_channels} != {self.aggregation.out_channels})"
             )
         self.net_3d = PN2SSG(cfg.pn2, gen=gen)
+        self.remat_2d = False
+
+    def _net_2d(self, x):
+        if not (self.remat_2d and self.training and torch.is_grad_enabled()):
+            return self.net_2d(x)
+        # the backward pass runs the 2D net a second time: that run must not
+        # move the BN running statistics again (flax's remat recomputes
+        # without touching state)
+        calls = []
+
+        def run(images):
+            keep = contextlib.nullcontext() if not calls else _frozen_running_stats(self.net_2d)
+            calls.append(1)
+            with keep:
+                return self.net_2d(images)
+
+        return checkpoint(run, x, use_reentrant=False)
 
     def forward(self, batch):
         """batch: points (B,N,3), images (B,V,H,W,3) in [0, 1], image_xyz
@@ -77,7 +99,7 @@ class MVPNet3D(nn.Module):
         image_xyz = batch["image_xyz"]
         B, V, H, W, _ = images.shape
 
-        feat2d, logits_2d = self.net_2d(images.reshape(B * V, H, W, 3))
+        feat2d, logits_2d = self._net_2d(images.reshape(B * V, H, W, 3))
         pixel_feat = feat2d.reshape(B, V * H * W, feat2d.shape[-1])
         pixel_xyz = image_xyz.reshape(B, V * H * W, 3)
 
@@ -88,3 +110,15 @@ class MVPNet3D(nn.Module):
         fused = self.aggregation(points, grouped_xyz, grouped_feat)
         logits_3d = self.net_3d(points, fused)
         return logits_3d, logits_2d.reshape(B, V, H, W, -1)
+
+
+@contextlib.contextmanager
+def _frozen_running_stats(module: nn.Module):
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.track_running_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.track_running_stats = True

@@ -4,7 +4,8 @@ Counterpart of ``mvpnet_tpu/models/pointnet2.py``:
 
   SA x4:  FPS -> ball query -> group -> SharedMLP -> max-pool
   FP x4:  three-NN inverse-distance interpolation -> skip concat -> SharedMLP
-  head:   per-point MLP -> dropout (identity in eval) -> linear
+  head:   per-point MLP -> dropout (identity in eval; in train mode it draws
+          from an explicit torch.Generator) -> linear
 
 FPS, ball query and the three-NN search come from ``mvpnet_torch.ops``: CUDA
 kernels on the card, the plain versions on the CPU.
@@ -16,7 +17,7 @@ from torch import nn
 
 from mvpnet_torch import ops
 from mvpnet_torch.config import PN2SSGConfig
-from mvpnet_torch.models.blocks import SharedMLP, linear, make_linear, torch_dtype
+from mvpnet_torch.models.blocks import Dropout, SharedMLP, linear, make_linear, torch_dtype
 
 
 def gather_points(xyz: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -100,7 +101,7 @@ class PN2SSG(nn.Module):
         self.fp_layers = nn.ModuleList(fp_layers)
 
         self.head_mlp = SharedMLP(c_sparse, (cfg.head_channels,), norm=cfg.norm, dtype=dtype, gen=gen)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout)
         # flax's default Linear init: lecun_normal (scale 1), zero bias
         self.head = make_linear(cfg.head_channels, cfg.num_classes, bias=True, gen=gen, scale=1.0)
 

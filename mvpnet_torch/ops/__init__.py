@@ -19,20 +19,37 @@ behind one signature:
 shared memory and ``fps_perrow`` for longer ones (``fps.route``).
 
 ``knn`` routes ref clouds of >= 2^15 points with >= 256 queries (the fusion
-kNN) to ``knn_bucketed`` and every other search to the brute kernel, as
-``mvpnet_tpu/ops/pallas/knn_bucketed.py:86-96`` does.
+kNN) to one of three kernels and every other search to the brute kernel, as
+``mvpnet_tpu/ops/pallas/knn_bucketed.py:86-96`` does. ``set_fusion_variant``
+picks the fusion kernel, the counterpart of that file's ``_USE_DEMAND`` and
+``use_vmem``:
+  * ``"demand"`` (default, as in JAX): ``knn_bucketed`` (``csrc/knn_fusion.cu``);
+  * ``"gated"`` (``_USE_DEMAND = False``): ``knn_gated`` (``csrc/knn_gated.cu``);
+  * ``"resident"`` (``use_vmem=True``): ``knn_resident``
+    (``csrc/knn_resident.cu``), at most 2^17 refs.
+
+``knn`` and ``knn_prepared`` are differentiable in the distances (a
+``torch.autograd.Function`` whose backward is ``_knn_bwd``'s plain math,
+``mvpnet_tpu/ops/pallas/knn.py:180``); indices carry no gradient, nor do
+FPS and ball query, which return only indices.
 """
 from __future__ import annotations
+
+import torch
 
 from mvpnet_torch.ops import ballquery as _bq
 from mvpnet_torch.ops import fps as _fps
 from mvpnet_torch.ops import knn as _knn
 from mvpnet_torch.ops import knn_bucketed as _knn_bucketed
+from mvpnet_torch.ops import knn_gated as _knn_gated
+from mvpnet_torch.ops import knn_resident as _knn_resident
 from mvpnet_torch.ops import reference as _ref
 from mvpnet_torch.ops.reference import group_points  # noqa: F401
 
 _IMPLS = ("auto", "reference", "cuda")
 _impl = "auto"
+FUSION_VARIANTS = ("demand", "gated", "resident")
+_fusion_variant = "demand"
 # wrapper module of each CUDA kernel, by kernel name. (The function ``knn``
 # below shadows the submodule attribute ``ops.knn``; reach the brute
 # wrapper module as ``KERNELS["knn"]``.)
@@ -42,6 +59,8 @@ KERNELS = {
     "fps_perrow": _fps.perrow,
     "ball_query": _bq,
     "knn": _knn,
+    "knn_gated": _knn_gated,
+    "knn_resident": _knn_resident,
 }
 
 
@@ -50,6 +69,14 @@ def set_impl(name: str) -> None:
     if name not in _IMPLS:
         raise ValueError(f"unknown ops impl {name!r}; expected one of {_IMPLS}")
     _impl = name
+
+
+def set_fusion_variant(name: str) -> None:
+    """Kernel of fusion-size searches: "demand", "gated" or "resident"."""
+    global _fusion_variant
+    if name not in FUSION_VARIANTS:
+        raise ValueError(f"unknown fusion kNN variant {name!r}; expected one of {FUSION_VARIANTS}")
+    _fusion_variant = name
 
 
 def launch_counts() -> dict[str, int]:
@@ -72,12 +99,51 @@ def _plain(t) -> bool:
     return False
 
 
-def _knn_dispatch(queries, refs, k):
+def _knn_search(queries, refs, k):
     if _plain(queries):
         return _ref.knn(queries, refs, k)
     if _knn_bucketed.supported(queries.shape[1], refs.shape[1]):
+        if _fusion_variant == "gated":
+            return _knn_gated.knn(queries, refs, k)
+        if _fusion_variant == "resident":
+            return _knn_resident.knn(queries, refs, k)
         return _knn_bucketed.knn(queries, refs, k)
     return _knn.knn(queries, refs, k)
+
+
+class _KnnFunction(torch.autograd.Function):
+    """The dispatched search, differentiable in the distances: backward is
+    ``_knn_bwd`` (``mvpnet_tpu/ops/pallas/knn.py:180``) in plain PyTorch,
+    dq = sum_k g * 2(q - r[idx]) and dr the index_add_ of -g (duplicates add)."""
+
+    @staticmethod
+    def forward(ctx, queries, refs, k):
+        d, idx = _knn_search(queries, refs, k)
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(queries, refs, idx)
+        return d, idx
+
+    @staticmethod
+    def backward(ctx, g_d, _g_idx):
+        queries, refs, idx = ctx.saved_tensors
+        q, r = queries.float(), refs.float()
+        B, M, k = idx.shape
+        N = r.shape[1]
+        flat = idx.reshape(B, M * k).long()
+        nbr = torch.gather(r, 1, flat[..., None].expand(-1, -1, 3)).reshape(B, M, k, 3)
+        g = g_d.float()[..., None] * (2.0 * (q[:, :, None, :] - nbr))
+        dq = g.sum(dim=2).to(queries.dtype) if ctx.needs_input_grad[0] else None
+        dr = None
+        if ctx.needs_input_grad[1]:
+            rows = (flat + torch.arange(B, device=flat.device)[:, None] * N).reshape(-1)
+            dr = torch.zeros((B * N, 3), dtype=torch.float32, device=r.device)
+            dr.index_add_(0, rows, -g.reshape(B * M * k, 3))
+            dr = dr.reshape(B, N, 3).to(refs.dtype)
+        return dq, dr, None
+
+
+def _knn_dispatch(queries, refs, k):
+    return _KnnFunction.apply(queries, refs, k)
 
 
 def knn(queries, refs, k: int, ref_mask=None):
@@ -122,6 +188,7 @@ def knn_prepare(refs) -> RawRefs:
 
 
 def knn_prepared(queries, prepared: RawRefs, k: int):
-    """kNN against a ``knn_prepare`` result; the contract of ``knn``, and the
-    same route (the fusion kernel for a large cloud on the card)."""
+    """kNN against a ``knn_prepare`` result; the contract of ``knn``, the
+    same route (the fusion kernel for a large cloud on the card) and the same
+    gradient (to the queries and to ``prepared.refs``)."""
     return _knn_dispatch(queries, prepared.refs, k)

@@ -22,7 +22,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("knn", "knn_fusion", "fps", "ballquery")
+SOURCES = ("knn", "knn_fusion", "knn_gated", "knn_resident", "fps", "ballquery")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
@@ -112,6 +112,12 @@ _SIGNATURES = {
     ("knn_fusion", "knn_fusion"): (
         _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
     ),
+    ("knn_gated", "knn_gated"): (
+        _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
+    ),
+    ("knn_resident", "knn_resident"): (
+        _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
+    ),
     ("fps", "fps"): (_PTR, _PTR, _INT, _INT, _INT, _PTR, _PTR),
     ("fps", "fps_perrow"): (_PTR, _PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR),
     ("fps", "fps_shared_bytes"): (_INT_OUT,),
@@ -166,3 +172,13 @@ def same_device(*tensors) -> None:
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
+
+
+def counter_ptr(counter, like) -> int:
+    """Pointer of a one-element int64 counter on ``like``'s device (a kernel
+    adds to it as an unsigned long long); raises otherwise."""
+    import torch
+
+    if counter.dtype != torch.int64 or counter.numel() != 1 or counter.device != like.device:
+        raise ValueError("a kernel counter must be a one-element int64 tensor on the inputs' device")
+    return counter.data_ptr()

@@ -1,0 +1,55 @@
+"""Resident-cloud fusion-scale exact kNN: wrapper of ``csrc/knn_resident.cu``.
+
+Counterpart of ``mvpnet_tpu/ops/pallas/knn_bucketed.py::_knn_forward_demand``
+with ``use_vmem=True`` (``_vmem_kernel``); here
+``ops.set_fusion_variant("resident")``. Same preparation as the gated kernel
+(``ops.morton``) with 64-row query tiles and 1024-ref tiles; each query
+tile walks its ref tiles in ascending lower-bound order and stops at the
+first bound that cannot beat its worst k-th distance. It takes at most
+2^17 refs and raises above that, as the JAX package does.
+
+A CUDA tensor launches the kernel; a CPU tensor takes the plain version
+(``morton.gated_plain``). ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from mvpnet_torch.ops import morton
+from mvpnet_torch.ops.knn import check_args
+from mvpnet_torch.ops.knn_gated import run_sorted
+
+launches = 0
+
+
+def tiles(M: int) -> tuple[int, int]:
+    """(tile_m, tile_n) of ``_knn_forward_demand(use_vmem=True)``."""
+    return min(morton.VMEM_TILE_M, max(morton.SUB, M)), morton.VMEM_TILE_N
+
+
+def check_size(N: int) -> None:
+    if N > morton.VMEM_N_MAX:
+        raise ValueError(f"the resident kNN keeps the whole ref cloud resident: N={N} > {morton.VMEM_N_MAX}")
+
+
+def plain(queries: torch.Tensor, refs: torch.Tensor, k: int, rows=None):
+    """The kernel's plain version (``morton.gated_plain`` at these tiles)."""
+    check_size(refs.shape[1])
+    tile_m, tile_n = tiles(queries.shape[1])
+    return morton.gated_plain(queries, refs, k, tile_m, tile_n, rows=rows)
+
+
+def knn(queries: torch.Tensor, refs: torch.Tensor, k: int, scanned: torch.Tensor | None = None):
+    """(B, M, 3), (B, N <= 2^17, 3) -> (B, M, k) f32 squared distances,
+    ascending, and (B, M, k) int32 indices; ties follow the visit order.
+    ``scanned``: as ``knn_gated.knn``'s."""
+    global launches
+    check_args(queries, refs, k)
+    if not queries.is_cuda:
+        return plain(queries, refs, k)
+    check_size(refs.shape[1])
+    tile_m, tile_n = tiles(queries.shape[1])
+    out = run_sorted("knn_resident", queries, refs, k, tile_m, tile_n, (), scanned)
+    launches += 1
+    return out
+

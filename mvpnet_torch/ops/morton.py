@@ -1,0 +1,191 @@
+"""Morton sort and tile lower bounds of the gated fusion kNN (plain PyTorch).
+
+Counterpart of the jnp preparation in ``mvpnet_tpu/ops/pallas/knn_bucketed.py``
+(``_morton_code`` :99, ``_tile_bounds`` :116, ``_box_sqdist`` :130,
+``_prepare`` :693, ``_inverse_perm`` :600, ``_unmap`` :610) with its
+constants (:58-83). It runs on the tensor's device; the gated kernels
+(``csrc/knn_gated.cu``, ``csrc/knn_resident.cu``) take its output.
+
+  1. Queries and refs are sorted by a 30-bit Morton code over the queries'
+     bounding box, so consecutive slabs are spatially compact.
+  2. Both are padded to whole tiles with the 3e9 pad coordinate.
+  3. Each (query tile, ref tile) pair gets the squared distance between
+     their boxes over real coordinates (|c| < 1e5) as a lower bound; each
+     query tile visits the ref tiles in ascending bound order.
+
+Both sorts are stable (``argsort(stable=True)``), as ``jnp.argsort`` is:
+equal Morton codes and the lb = 0 ties of overlapping boxes are common, and
+the visit order must be the JAX package's exactly.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+TILE_M = 256
+TILE_N = 2048
+TILE_N_BIG = 8192  # ref tiles at and above BIG_N (the subgroup-gated body)
+BIG_N = 1 << 18
+SUB = 8  # query rows per gated subgroup
+MAX_K = 8
+# ref padding: beyond the 1e9 masked-ref sentinel, so padding never outranks
+# a masked but real ref; (3e9)^2 * 3 < f32 max
+PAD_COORD = 3e9
+# coordinates at or above this magnitude are sentinels (invalid-pixel fill
+# 1e6, masked ref 1e9, pad 3e9): excluded from the tile boxes
+SENTINEL_MIN = 1e5
+# the resident variant (csrc/knn_resident.cu): the whole sorted cloud stays
+# resident, so it takes at most VMEM_N_MAX refs
+VMEM_N_MAX = 1 << 17
+VMEM_TILE_M = 64
+VMEM_TILE_N = 1024
+
+
+def morton_code(xyz: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """30-bit Morton code from 10 bits a dimension; xyz (..., 3), lo/hi (..., 1, 3)."""
+    scale = torch.clamp(hi - lo, min=1e-12)
+    q = torch.clamp((xyz - lo) / scale, 0.0, 1.0 - 1e-7)
+    cell = (q * 1024.0).to(torch.int32)  # (..., 3) in [0, 1023]
+
+    def spread(v):  # 10 bits -> every third bit
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        v = (v | (v << 2)) & 0x09249249
+        return v
+
+    return spread(cell[..., 0]) | (spread(cell[..., 1]) << 1) | (spread(cell[..., 2]) << 2)
+
+
+def tile_bounds(sorted_xyz: torch.Tensor, tile: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, N, 3) -> per-tile boxes lo, hi (B, N // tile, 3) over real points;
+    an all-sentinel tile gets (+inf, -inf): an infinite lower bound."""
+    B, N, _ = sorted_xyz.shape
+    t = sorted_xyz.reshape(B, N // tile, tile, 3)
+    real = torch.all(t.abs() < SENTINEL_MIN, dim=-1, keepdim=True)
+    inf = torch.tensor(float("inf"), dtype=t.dtype, device=t.device)
+    lo = torch.where(real, t, inf).amin(dim=2)
+    hi = torch.where(real, t, -inf).amax(dim=2)
+    return lo, hi
+
+
+def box_sqdist(alo, ahi, blo, bhi) -> torch.Tensor:
+    """Least squared distance between box sets: (B, Mt, 3) x (B, Nt, 3) -> (B, Mt, Nt)."""
+    gap = torch.clamp(
+        torch.maximum(alo[:, :, None, :] - bhi[:, None, :, :], blo[:, None, :, :] - ahi[:, :, None, :]),
+        min=0.0,
+    )
+    g2 = gap * gap
+    return (g2[..., 0] + g2[..., 1]) + g2[..., 2]
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    if rows == x.shape[1]:
+        return x
+    pad = x.new_full((x.shape[0], rows - x.shape[1], 3), PAD_COORD)
+    return torch.cat([x, pad], dim=1)
+
+
+class Prepared(NamedTuple):
+    """The gated kernels' operands (``_prepare``'s outputs).
+
+    q_sorted (B, M_pad, 3) and r_sorted (B, N_pad, 3) Morton-sorted, padded,
+    contiguous f32; q_order (B, M), r_order (B, N) sorted position -> original
+    index (int64); order (B, Mt, Nt) int32 ref tiles of each query tile in
+    visit order; lb_sorted (B, Mt, Nt) f32 their lower bounds."""
+
+    q_sorted: torch.Tensor
+    r_sorted: torch.Tensor
+    q_order: torch.Tensor
+    r_order: torch.Tensor
+    order: torch.Tensor
+    lb_sorted: torch.Tensor
+    tile_m: int
+    tile_n: int
+
+
+def prepare(queries: torch.Tensor, refs: torch.Tensor, tile_m: int, tile_n: int) -> Prepared:
+    """Morton-sort queries and refs (box from the queries), pad to tiles, and
+    rank each query tile's ref tiles by their lower bound."""
+    B, M, _ = queries.shape
+    N = refs.shape[1]
+    q = queries.float()
+    r = refs.float()
+    # the quantization box comes from the queries (the chunk): refs far
+    # outside clamp to boundary cells, their tiles get far boxes
+    lo = q.amin(dim=1, keepdim=True)
+    hi = q.amax(dim=1, keepdim=True)
+    q_order = torch.argsort(morton_code(q, lo, hi), dim=1, stable=True)
+    r_order = torch.argsort(morton_code(r, lo, hi), dim=1, stable=True)
+    q_sorted = torch.gather(q, 1, q_order[..., None].expand(-1, -1, 3))
+    r_sorted = torch.gather(r, 1, r_order[..., None].expand(-1, -1, 3))
+    q_sorted = _pad_rows(q_sorted, -(-M // tile_m) * tile_m).contiguous()
+    r_sorted = _pad_rows(r_sorted, -(-N // tile_n) * tile_n).contiguous()
+    lb = box_sqdist(*tile_bounds(q_sorted, tile_m), *tile_bounds(r_sorted, tile_n))
+    order = torch.argsort(lb, dim=-1, stable=True)  # nearest tiles first
+    lb_sorted = torch.gather(lb, -1, order).contiguous()
+    return Prepared(q_sorted, r_sorted, q_order, r_order, order.to(torch.int32).contiguous(), lb_sorted, tile_m, tile_n)
+
+
+def inverse_perm(order: torch.Tensor) -> torch.Tensor:
+    """Invert a (B, M) permutation by one scatter."""
+    B, M = order.shape
+    iota = torch.arange(M, device=order.device).expand(B, M)
+    return torch.empty_like(iota).scatter_(1, order.long(), iota)
+
+
+def unmap(d_s, i_s, q_order, r_order, M: int, N: int):
+    """Sorted-space kernel outputs (B, M_pad, k) -> original query order and
+    original ref indices (int32)."""
+    B, _, k = d_s.shape
+    d_s, i_s = d_s[:, :M], i_s[:, :M]
+    # padding columns win only when a row has fewer than k real refs; the
+    # clamp keeps the gather in range
+    i_orig = torch.gather(r_order, 1, i_s.long().clamp(0, N - 1).reshape(B, M * k)).reshape(B, M, k)
+    inv = inverse_perm(q_order)[..., None].expand(-1, -1, k)
+    return torch.gather(d_s, 1, inv), torch.gather(i_orig, 1, inv).to(torch.int32)
+
+
+def visit_columns(p: Prepared) -> torch.Tensor:
+    """(B, Mt, N_pad) int64: each query tile's sorted ref columns in visit
+    order (its tiles in ``order``, each tile's columns ascending)."""
+    cols = torch.arange(p.tile_n, device=p.order.device)
+    B, Mt, Nt = p.order.shape
+    return (p.order.long()[..., None] * p.tile_n + cols).reshape(B, Mt, Nt * p.tile_n)
+
+
+def gated_plain(queries, refs, k: int, tile_m: int, tile_n: int, rows=None, block_elems: int = 1 << 26):
+    """Plain version of the gated kernels: what they return, computed without
+    the gate.
+
+    After ``prepare``, each query's squared distances to every sorted ref,
+    with the columns permuted into its query tile's visit order, go through a
+    stable sort; the first k are the result. That equals the gated search
+    exactly, visit-order ties included: a skipped tile cannot beat the k-th
+    distance, and an equal one loses the tie. ``rows`` (a 1-D index tensor)
+    restricts the output to those original queries (the prepare still sees
+    every query, as the kernel does). Returns (B, R, k) f32 and int32."""
+    from mvpnet_torch.ops.reference import sqdist
+
+    B, M, _ = queries.shape
+    N = refs.shape[1]
+    p = prepare(queries, refs, tile_m, tile_n)
+    rows = torch.arange(M, device=queries.device) if rows is None else rows.to(queries.device).long()
+    pos = inverse_perm(p.q_order)[:, rows]  # (B, R) sorted rows of the chosen queries
+    visit = visit_columns(p)
+    R = pos.shape[1]
+    n_pad = p.r_sorted.shape[1]
+    d_out = torch.empty((B, R, k), dtype=torch.float32, device=queries.device)
+    i_out = torch.empty((B, R, k), dtype=torch.int32, device=queries.device)
+    step = max(1, block_elems // (B * n_pad))
+    for s in range(0, R, step):
+        e = min(R, s + step)
+        qs = torch.gather(p.q_sorted, 1, pos[:, s:e, None].expand(-1, -1, 3))
+        cols = torch.gather(visit, 1, (pos[:, s:e] // tile_m)[..., None].expand(-1, -1, n_pad))
+        d2 = torch.gather(sqdist(qs, p.r_sorted), 2, cols)  # (B, r, N_pad) in visit order
+        d_sorted, at = torch.sort(d2, dim=-1, stable=True)
+        i_sorted = torch.gather(cols, 2, at[..., :k]).clamp(0, N - 1)
+        d_out[:, s:e] = d_sorted[..., :k]
+        i_out[:, s:e] = torch.gather(p.r_order, 1, i_sorted.reshape(B, -1)).reshape(B, e - s, k).to(torch.int32)
+    return d_out, i_out

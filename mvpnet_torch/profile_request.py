@@ -34,11 +34,14 @@ PORT_KERNELS = {
     "fps_perrow": ("fps_perrow_kernel",),
     "ball_query": ("ball_query_kernel",),
     "knn": ("knn_brute_kernel",),
+    "knn_gated": ("knn_gated_kernel",),
+    "knn_resident": ("knn_resident_kernel",),
 }
 FAMILIES = (
     ("port kernels", "|".join(s for symbols in PORT_KERNELS.values() for s in symbols)),
     ("convolution", r"conv|xmma|implicit|cudnn|winograd|fft"),
     ("matmul", r"gemm|cutlass|cublas|Kernel2|s\d+gemm|sm90_"),
+    ("optimizer", r"multi_tensor|foreach|adam"),
     ("copy/layout", r"copy|Memcpy|Memset|nchw|nhwc|transpose|cat|pad"),
     ("elementwise/reduce", r"elementwise|reduce|vectorized|unrolled|index|gather|scatter|batch_norm|upsample|max_pool"),
 )
@@ -63,7 +66,12 @@ def breakdown(prof, n: int, wall_ms: float, unit: str) -> dict:
     busy ms (the sum of kernel time, one stream, so kernels do not overlap),
     the idle share of ``wall_ms``, ms of each port kernel, ms by family, and
     the kernels with the most device time, each per unit."""
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device-side ranges of record_function annotations (the optimizer's
+    # step, for one) overlap the kernels inside them: not counted
+    kernels = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+    ]
     busy_ms = sum(_device_ms(e) for e in kernels)
     per_kernel = {
         name: sum(_device_ms(e) for e in kernels if any(s in e.key for s in symbols)) / n

@@ -1,1 +1,2 @@
-"""Batch preparation and metrics."""
+"""Batch preparation, the train and eval steps, solver, checkpoints, the
+training loop, and metrics."""

@@ -1,20 +1,24 @@
-"""Device-side batch preparation.
+"""Device-side batch preparation and the train and eval steps.
 
-Counterpart of ``mvpnet_tpu/train/step.py::prepare_batch`` for inference:
-dequantize the compact wire format and lift depth to world-space pixel
-clouds on the device. Training (augmentation, the train step) is not ported
-yet, and ``training=True`` raises.
+Counterpart of ``mvpnet_tpu/train/step.py``: the host ships raw arrays, and
+everything geometric — dequantizing the compact wire format, lifting depth
+to world-space pixel clouds, train-time augmentation — happens on the
+device. The fusion kNN runs inside ``MVPNet3D.forward``.
+
+PyTorch runs eagerly, so the steps are plain functions over a model and an
+optimizer (``train.solver.Optimizer``) that update them in place.
 """
 from __future__ import annotations
 
 import torch
 
 from mvpnet_torch.config import Config
+from mvpnet_torch.core.augment import apply_chunk_augment, sample_chunk_params
 from mvpnet_torch.core.camera import unproject_views
 
 
-def prepare_batch(cfg: Config, batch: dict, *, training: bool) -> dict:
-    """Lift depth to world-space pixel clouds.
+def prepare_batch(cfg: Config, batch: dict, *, training: bool, generator: torch.Generator | None = None) -> dict:
+    """Lift depth to world-space pixel clouds; augment in training.
 
     Input (tensors on one device): points (B,N,3), images (B,V,H,W,3),
     depth (B,V,H,W), poses (B,V,4,4), intrinsics (B,3,3), optional
@@ -22,9 +26,12 @@ def prepare_batch(cfg: Config, batch: dict, *, training: bool) -> dict:
     uint8 images (/255), uint16 millimeter depth, int16 millimeter points,
     int8 labels. Output: points, images, image_xyz (B,V,H,W,3), image_valid
     (B,V,H,W), and the labels (seg_label_2d set to the ignore label where the
-    depth is invalid)."""
-    if training:
-        raise NotImplementedError("training-mode prepare_batch (augmentation) is not ported yet")
+    depth is invalid).
+
+    With ``training``, ``cfg.data.augment`` and a ``generator`` (a CPU
+    ``torch.Generator``), each sample's augmentation parameters are drawn
+    from it and applied to points, image_xyz and images
+    (``core/augment.py``)."""
     images = batch["images"]
     depth = batch["depth"]
     if images.dtype == torch.uint8:
@@ -36,6 +43,12 @@ def prepare_batch(cfg: Config, batch: dict, *, training: bool) -> dict:
         points = points.float() / 1000.0
     intr = batch["intrinsics"][:, None].expand(depth.shape[:2] + (3, 3))
     image_xyz, valid = unproject_views(depth, intr, batch["poses"])
+    if training and cfg.data.augment and generator is not None:
+        d = cfg.data
+        params = sample_chunk_params(generator, points.shape[0], flip_prob=d.flip_prob, jitter=d.color_jitter)
+        points, image_xyz, images = apply_chunk_augment(
+            points, image_xyz, images, params, z_rot=d.z_rot, flip_prob=d.flip_prob, jitter=d.color_jitter
+        )
     out = {
         "points": points,
         "images": images,
@@ -53,3 +66,69 @@ def prepare_batch(cfg: Config, batch: dict, *, training: bool) -> dict:
 
 def _labels(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32) if t.dtype == torch.int8 else t
+
+
+def make_train_step(cfg: Config, loss_fn, metric_fn):
+    """The training step: ``train_step(model, optimizer, batch, generator)
+    -> metrics`` (device tensors: loss, accuracy, confusion).
+
+    The model must be in train mode. With ``cfg.train.grad_accum = n > 1``
+    the batch is split into n sequential microbatches: their gradients are
+    summed and divided by n, and the optimizer makes one update (the JAX
+    step's ``lax.scan``, ``mvpnet_tpu/train/step.py:141-179``). The confusion
+    matrix is summed over microbatches, the other metrics averaged; BN batch
+    statistics see microbatches and move once per microbatch."""
+    accum = max(1, int(cfg.train.grad_accum))
+
+    def micro_step(model, batch, generator):
+        model_batch = prepare_batch(cfg, batch, training=True, generator=generator)
+        out = model(model_batch)
+        loss = loss_fn(out, model_batch)
+        loss.backward()
+        with torch.no_grad():
+            metrics = metric_fn(out, model_batch)
+        metrics["loss"] = loss.detach()
+        return metrics
+
+    def train_step(model, optimizer, batch: dict, generator: torch.Generator | None = None) -> dict:
+        optimizer.zero_grad()
+        if accum == 1:
+            metrics = micro_step(model, batch, generator)
+            optimizer.step()
+            return metrics
+        B = next(iter(batch.values())).shape[0]
+        if B % accum:
+            raise ValueError(f"batch {B} not divisible by grad_accum={accum}")
+        size = B // accum
+        stack: dict = {}
+        for a in range(accum):
+            micro = {k: v[a * size : (a + 1) * size] for k, v in batch.items()}
+            for k, v in micro_step(model, micro, generator).items():
+                stack.setdefault(k, []).append(v)
+        with torch.no_grad():
+            for p in optimizer.params:
+                if p.grad is not None:
+                    p.grad.div_(accum)
+        optimizer.step()
+        # counts (the confusion matrix) add up; rates and losses average
+        return {
+            k: torch.stack(v).sum(0) if k == "confusion" else torch.stack(v).float().mean(0)
+            for k, v in stack.items()
+        }
+
+    return train_step
+
+
+def make_eval_step(cfg: Config, loss_fn, metric_fn):
+    """``eval_step(model, batch) -> metrics`` without gradients; the caller
+    puts the model in eval mode."""
+
+    @torch.no_grad()
+    def eval_step(model, batch: dict) -> dict:
+        model_batch = prepare_batch(cfg, batch, training=False)
+        out = model(model_batch)
+        metrics = metric_fn(out, model_batch)
+        metrics["loss"] = loss_fn(out, model_batch)
+        return metrics
+
+    return eval_step

@@ -56,6 +56,7 @@ def models():
     jmodel.eval()
     cfg = _port_cfg(jcfg)
     model, _, _ = build_model(cfg)
+    model.eval()
     convert.load_jax_params(model, _flat_params(jmodel))
     return jcfg, jmodel, cfg, model
 

@@ -49,6 +49,8 @@ def test_entry_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         entry_mod.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry_mod.train_entry()
     assert entry_mod.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -67,7 +69,7 @@ def test_kernel_sources_ship_with_the_repo(name):
 
 
 def test_every_kernel_has_a_counted_wrapper():
-    assert set(ops.KERNELS) == {"knn_fusion", "fps", "fps_perrow", "ball_query", "knn"}
+    assert set(ops.KERNELS) == {"knn_fusion", "fps", "fps_perrow", "ball_query", "knn", "knn_gated", "knn_resident"}
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
 

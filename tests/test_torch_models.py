@@ -71,6 +71,7 @@ def pair():
 
     cfg = _port_cfg(jcfg)
     model, loss_fn, metric_fn = build_model(cfg)
+    model.eval()
     convert.load_jax_params(model, _flat_params(jmodel))
     batch = prepare_batch(cfg, {k: torch.from_numpy(v) for k, v in raw.items()}, training=False)
     return jcfg, jmodel, jbatch, cfg, model, batch
@@ -158,12 +159,15 @@ def test_load_jax_params_rejects_mismatch(pair, fault):
 
 
 def test_inference_only_surfaces_raise(pair):
+    """The models not ported yet raise; train-mode BN, once such a surface,
+    now runs (tests/test_torch_train.py holds it against flax)."""
     _, _, _, cfg, model, batch = pair
-    with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, name="sem_seg_2d")))
+    for name in ("sem_seg_2d", "pn2ssg"):
+        with pytest.raises(NotImplementedError):
+            build_model(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, name=name)))
     bn = BatchNorm(4).train()
-    with pytest.raises(NotImplementedError):
-        bn(torch.zeros(2, 4))
+    y = bn(torch.arange(8.0).reshape(2, 4))
+    assert torch.allclose(y, torch.tensor([[-1.0] * 4, [1.0] * 4]), atol=1e-5)
 
 
 def test_entry_on_cpu_runs_tiny_config():

@@ -8,7 +8,10 @@ the deliberate duplicate-point case, where both break them to the lower
 index). Distances agree within 1e-5 absolute: the JAX reference expands
 |a|^2 - 2ab + |b|^2 while the port (and the kernels) compute (a - b)^2.
 """
+import dataclasses
+
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -22,7 +25,7 @@ from mvpnet_tpu.train.step import prepare_batch as jax_prepare_batch
 from mvpnet_torch import ops
 from mvpnet_torch.config import Config
 from mvpnet_torch.core.camera import unproject_views
-from mvpnet_torch.ops import ballquery, fps, knn_bucketed, reference
+from mvpnet_torch.ops import ballquery, fps, knn_bucketed, knn_gated, knn_resident, morton, reference
 from mvpnet_torch.train.step import prepare_batch
 
 
@@ -144,10 +147,13 @@ def test_knn_matches_jax(rng, case, k):
 
 @pytest.fixture
 def small_gated_tiles(monkeypatch):
-    """Shrink the gated kernel's tiles so interpret mode walks many tiles."""
+    """tests/test_pallas.py's small tiles for the JAX gated and VMEM kernels,
+    so interpret mode walks many tiles."""
     monkeypatch.setattr(pgated, "_TILE_M", 32)
     monkeypatch.setattr(pgated, "_TILE_N", 64)
     monkeypatch.setattr(pgated, "_TILE_N_BIG", 64)
+    monkeypatch.setattr(pgated, "_VMEM_TILE_M", 32)
+    monkeypatch.setattr(pgated, "_VMEM_TILE_N", 64)
 
 
 @pytest.mark.parametrize("sentinel", [False, True])
@@ -236,8 +242,11 @@ def test_prepare_batch_matches_jax(rng, compact):
     assert set(got) == set(want)
     for key in want:
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), rtol=1e-6, atol=1e-5, err_msg=key)
-    with pytest.raises(NotImplementedError):
-        prepare_batch(Config(), {k: _t(x) for k, x in batch.items()}, training=True)
+    # training without augmentation prepares the same batch
+    no_aug = dataclasses.replace(Config(), data=dataclasses.replace(Config().data, augment=False))
+    train = prepare_batch(no_aug, {k: _t(x) for k, x in batch.items()}, training=True, generator=torch.Generator())
+    for key in want:
+        assert torch.equal(train[key], got[key]), key
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +271,9 @@ def test_dispatch_modes_on_cpu(rng):
     with pytest.raises(ValueError):
         ops.set_impl("pallas")
     # plain versions launch nothing
-    assert ops.launch_counts() == {"knn_fusion": 0, "fps": 0, "fps_perrow": 0, "ball_query": 0, "knn": 0}
+    assert ops.launch_counts() == {
+        "knn_fusion": 0, "fps": 0, "fps_perrow": 0, "ball_query": 0, "knn": 0, "knn_gated": 0, "knn_resident": 0,
+    }
 
 
 @pytest.mark.parametrize(
@@ -351,3 +362,149 @@ def test_knn_prepared_matches_knn(rng):
     jd, ji = jops.knn_prepared(jnp.asarray(q), jops.knn_prepare(jnp.asarray(r)), 3)
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(ji))
     np.testing.assert_allclose(got_d.numpy(), np.asarray(jd), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The gated fusion kNN variants: Morton prep, rows 6 and 7, variant choice
+# ---------------------------------------------------------------------------
+
+
+def _variant_case(rng, case):
+    """(queries, refs) of one of the variant tests' cases."""
+    q = _pts(rng, 2, 100)
+    r = _pts(rng, 2, 1000)
+    if case == "sentinel":
+        r[:, 300:450] = 1e6  # a block of invalid pixels
+        r[:, ::7] = 1e6  # and scattered ones
+    elif case == "masked":
+        r[:, 600:] = reference.MASK_COORD  # ops.knn's ref_mask fill
+    elif case == "duplicates":  # equal distances: ties follow the visit order
+        base = _pts(rng, 2, 500)
+        r = np.concatenate([base, base], axis=1)
+        q = base[:, :100] + 1e-7
+    return q, r
+
+
+@pytest.mark.parametrize("case", ["plain", "sentinel", "duplicates"])
+def test_morton_prepare_matches_jax(rng, case):
+    """Every output of the ported prep equals JAX's _prepare exactly: the two
+    stable sorts (Morton order, lb visit order), the padded clouds and the
+    bounds."""
+    q, r = _variant_case(rng, case)
+    want = pgated._prepare(jnp.asarray(q), jnp.asarray(r), 32, 64)
+    got = morton.prepare(_t(q), _t(r), 32, 64)
+    for name, w, g in [("q_sorted", want[0], got.q_sorted), ("r_sorted", want[1], got.r_sorted),
+                       ("q_order", want[2], got.q_order), ("r_order", want[3], got.r_order),
+                       ("order", want[4], got.order), ("lb_sorted", want[5], got.lb_sorted)]:
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    assert (want[6], want[7]) == (got.q_sorted.shape[1], got.r_sorted.shape[1])
+    inv = morton.inverse_perm(got.q_order)
+    np.testing.assert_array_equal(inv.numpy(), np.asarray(pgated._inverse_perm(want[2])))
+
+
+# distances: the JAX kernel's dx*dx + dy*dy + dz*dz may contract into FMAs in
+# interpret mode; the port rounds each op (the CUDA kernels' form), ~1 ulp
+GATED_ATOL = 1e-6
+
+
+@pytest.mark.parametrize("case", ["plain", "sentinel", "masked", "duplicates"])
+def test_gated_plain_matches_jax_gated_kernel(rng, small_gated_tiles, case):
+    """Row 6's plain version equals JAX's _knn_forward (_gated_kernel, TPU
+    interpret mode) index for index, visit-order ties included."""
+    q, r = _variant_case(rng, case)
+    with pltpu.force_tpu_interpret_mode():
+        want_d, want_i = pgated._knn_forward(jnp.asarray(q), jnp.asarray(r), 3)
+    got_d, got_i = morton.gated_plain(_t(q), _t(r), 3, 32, 64)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=GATED_ATOL, rtol=1e-6)
+    if case != "plain":
+        assert not np.isin(got_i.numpy(), np.arange(600, 1000) if case == "masked" else np.arange(300, 450)).any() \
+            or case == "duplicates"
+
+
+def test_gated_plain_matches_jax_subgroup_gate(rng, small_gated_tiles, monkeypatch):
+    """The big-N body (8-row subgroup gates over real-coordinate boxes),
+    forced at small N: both sides switch at _BIG_N."""
+    monkeypatch.setattr(pgated, "_BIG_N", 512)
+    monkeypatch.setattr(morton, "BIG_N", 512)
+    monkeypatch.setattr(morton, "TILE_M", 32)
+    monkeypatch.setattr(morton, "TILE_N_BIG", 64)
+    q = _pts(rng, 1, 64)
+    r = _pts(rng, 1, 640)
+    r[:, ::5] = 1e6
+    with pltpu.force_tpu_interpret_mode():
+        want_d, want_i = pgated._knn_forward(jnp.asarray(q), jnp.asarray(r), 3)
+    assert knn_gated.tiles(64, 640) == (32, 64, True)
+    got_d, got_i = knn_gated.knn(_t(q), _t(r), 3)  # a CPU tensor: the plain version
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=GATED_ATOL, rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["plain", "duplicates"])
+def test_resident_plain_matches_jax_vmem_kernel(rng, small_gated_tiles, case):
+    """Row 7's plain version equals JAX's _knn_forward_demand(use_vmem=True)
+    (_vmem_kernel, TPU interpret mode) index for index."""
+    q, r = _variant_case(rng, case)
+    with pltpu.force_tpu_interpret_mode():
+        want_d, want_i = pgated._knn_forward_demand(jnp.asarray(q), jnp.asarray(r), 3, use_vmem=True)
+    got_d, got_i = morton.gated_plain(_t(q), _t(r), 3, 32, 64)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=GATED_ATOL, rtol=1e-6)
+
+
+def test_gated_plain_rows_subset(rng):
+    """``rows`` picks original queries out of the full search (what the card
+    check compares at full shape)."""
+    q, r = _pts(rng, 2, 300), _pts(rng, 2, 3000)
+    full = morton.gated_plain(_t(q), _t(r), 3, 64, 256)
+    rows = torch.tensor([0, 7, 299, 150])
+    part = morton.gated_plain(_t(q), _t(r), 3, 64, 256, rows=rows, block_elems=2 * 4096 * 3)
+    assert torch.equal(part[0], full[0][:, rows]) and torch.equal(part[1], full[1][:, rows])
+
+
+def test_fusion_variant_selection(rng):
+    q, r = _t(_pts(rng, 1, 256)), _t(_pts(rng, 1, 1 << 15))
+    want = ops.knn(q, r, 3)
+    try:
+        for name, mod in [("gated", knn_gated), ("resident", knn_resident)]:
+            ops.set_fusion_variant(name)
+            got = ops.knn(q, r, 3)  # the CPU: the variant's plain version
+            assert torch.equal(got[1], mod.plain(q, r, 3)[1])
+            assert torch.equal(got[1], want[1])  # no ties in continuous data
+        with pytest.raises(ValueError):
+            ops.set_fusion_variant("vmem")
+    finally:
+        ops.set_fusion_variant("demand")
+    with pytest.raises(ValueError, match="resident"):
+        knn_resident.knn(q, _t(_pts(rng, 1, morton.VMEM_N_MAX + 1)), 3)
+    assert knn_resident.tiles(8192) == (64, 1024) and knn_gated.tiles(8192, 57600) == (256, 2048, False)
+    assert knn_gated.tiles(102400, 1228800) == (256, 8192, True)
+    assert ops.launch_counts()["knn_gated"] == 0 and ops.launch_counts()["knn_resident"] == 0
+
+
+def _jax_knn_loss(q, r, k):
+    from mvpnet_tpu import ops as jops
+
+    d, _ = jops.knn(q, r, k)
+    return jnp.sum(jnp.sin(d))
+
+
+@pytest.mark.parametrize("prepared", [False, True], ids=["knn", "knn_prepared"])
+@pytest.mark.parametrize("variant", ["demand", "gated"])
+def test_knn_grads_match_jax(rng, prepared, variant):
+    """d/dq and d/dr of sum(sin(d)) through the port's kNN autograd equal
+    jax.grad through the JAX knn (its analytic custom VJP). Duplicate refs
+    make index_add_ add up."""
+    q = _pts(rng, 1, 300)
+    r = np.concatenate([_pts(rng, 1, 1 << 14)] * 2, axis=1)  # 2^15 refs: the fusion route
+    gq_want, gr_want = jax.grad(_jax_knn_loss, argnums=(0, 1))(jnp.asarray(q), jnp.asarray(r), 3)
+    tq, tr = _t(q).requires_grad_(), _t(r).requires_grad_()
+    ops.set_fusion_variant(variant)
+    try:
+        d, i = ops.knn_prepared(tq, ops.knn_prepare(tr), 3) if prepared else ops.knn(tq, tr, 3)
+    finally:
+        ops.set_fusion_variant("demand")
+    assert not i.requires_grad
+    torch.sin(d).sum().backward()
+    np.testing.assert_allclose(tq.grad.numpy(), np.asarray(gq_want), atol=1e-4)
+    np.testing.assert_allclose(tr.grad.numpy(), np.asarray(gr_want), atol=1e-4)
