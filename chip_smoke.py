@@ -9,10 +9,13 @@ Phases, each of which fails the run with a nonzero exit:
      at once) and print the build seconds;
   3. kernels: at the shapes the main path gives them, plus masked/sentinel,
      duplicate-point and two-row cases (and FPS rows too long for shared
-     memory), each kernel must equal its plain
-     PyTorch version on the card (indices and counts equal, distances bit
-     for bit); each is timed with CUDA events beside its plain version, a
-     one-call PyTorch yardstick where one exists, and its bound;
+     memory), each kernel must equal its plain PyTorch version on the card
+     (indices and counts equal, distances bit for bit); the fusion kNN (row
+     1) in both its modes, demand-gated and brute, on every query, also with
+     masked refs and rows with fewer than k real refs (ties to the lower
+     index); each kernel is timed with CUDA events beside its plain version,
+     a one-call PyTorch yardstick where one exists, and its bound (row 1's
+     from the pairs its route's mode scanned, the all-pairs bound beside it);
   4. slice: entry() at the default Config() (full width, bf16, B=1, N=8192,
      V=5 views of 120x160) answers 5 requests, each on a fresh numpy-seeded
      batch; every request must launch each kernel the expected number of
@@ -30,16 +33,25 @@ Phases, each of which fails the run with a nonzero exit:
            the device accumulator must be finite and cover most points;
            prints the scene's seconds, the ms of the forward and the mIoU;
        (b) each kernel against its plain version on this path's inputs: the
-           per-row FPS at the full SA1 shape (and masked), the shared-memory
-           FPS at SA2, ball query at SA1 and three-NN at FP1 at full shape,
-           the fusion kNN on the first 256 queries of each row (its plain
+           per-row FPS (the cluster kernel) at the full SA1 shape, masked,
+           with npoint > N, and on one 2^19-point row whose slices overflow
+           into device memory; the
+           shared-memory FPS at SA2, ball query at SA1 and three-NN at FP1
+           at full shape; the fusion kNN at full shape in both modes, held
+           on the first 256 queries of each row of the full run (its plain
            version cannot run the full shape); each timed at the full shape;
        (c) predict_scene through the kernels and with set_impl("reference")
            at the config's widths with data.num_points=16384 and
            data.num_views_eval=8 (SA1 rows of 16,384 points still take the
            per-row FPS): equal index-op outputs, argmax agreement > 0.999;
        (d) the fused estimator (evaluate_scenes(..., fused=True)): finite
-           logits.
+           logits; and knn_prepared over the scene's prepared pixel cloud
+           (ops.knn_prepare) with the first group of windows as queries: equal
+           to knn in full and to the plain version on its first 256 queries;
+       (e) the fusion kNN in both modes at five shapes of the scene's
+           windows between the train shape and the fused estimator's
+           (CROSSOVER): held like (b), each mode timed, the route's mode
+           printed beside the faster one.
   6. train: train_entry() at the training config
      (configs/scannet/mvpnet_3d_unet_resnet34_pn2ssg.yaml on synthetic scenes:
      full width, bf16, B=8, N=8192, V=3 views of 120x160, random weights from
@@ -54,16 +66,18 @@ Phases, each of which fails the run with a nonzero exit:
            the first batch's fusion inputs (sentinel pixels included) at the
            full shape, compared on the first 256 queries of each row, and
            with masked refs, duplicate points and a batch of 2; each timed
-           beside the default fusion kernel at that shape; row 6's 8-row
-           subgroup gate is also checked and timed at the scene path's
-           fusion shape in 5 (b);
+           beside the default fusion kernel (both modes) at that shape, and
+           FPS, ball query and three-NN (rows 2-4) at the step's shapes; row
+           6's 8-row subgroup gate is also checked and timed at the scene
+           path's fusion shape in 5 (b);
        (c) the first step again from the same weights and batch with the
            fusion kNN on each variant (demand, gated, resident): each
            launches its kernel once, with equal fusion indices and loss.
 Then it prints the {"kernels": [...]} line (seven kernels: their launches,
 times and bounds on the scene path, the chunk path's under "chunk_path",
-the train path's fusion kNN under "train_path"; rows 6 and 7 at the train
-shape, row 6's subgroup gate under "scene_path"), the card line, and last
+the train path's under "train_path", knn_prepared's under "fused_path";
+rows 6 and 7 at the train shape, row 6's subgroup gate under "scene_path"),
+the card line, and last
 {"ok": true, "device": {...}}.
 Without CUDA, or without the mvpnet_torch package beside it, it exits
 nonzero and prints no result.
@@ -113,6 +127,12 @@ SCENE_SHAPE = dict(num_points=300_000, num_frames=96, room=6.0)
 # (c): the scene path at reduced depth, where the plain versions run in time
 REDUCED = ["data.num_points=16384", "data.num_views_eval=8"]
 FUSION_SUBSET = 256  # queries of each row for the fusion kNN's plain version
+# (e): config #4's windows at fewer points and views (data.num_points,
+# data.num_views_eval), searches of 5.0e9 to 6.3e10 (query, ref) pairs:
+# between the train shape (3.8e9, where row 1's brute mode is faster) and the
+# fused estimator's (9.4e10, where its demand mode is), around
+# knn_bucketed.DEMAND_PAIRS; (16384, 8) is (c)'s reduced depth
+CROSSOVER = [(8192, 8), (16384, 8), (32768, 5), (32768, 16), (102400, 8)]
 
 
 def fail(msg: str) -> None:
@@ -196,13 +216,10 @@ def kernel_phase(torch, cfg, batch) -> list[dict]:
     valid[:, 0] = False  # the seed must move to the first valid point
     pix_batch = torch.cat([pix, pix_sentinel])  # two batch rows
     pts_batch = torch.cat([pts, pts_dup])
-    # rows too long for shared memory: fps.cu's per-row kernel
+    # rows too long for shared memory: fps.cu's cluster kernel
     long_rows = rnd(2, 20000, 3)
     checks = [
-        ("knn_fusion batch of 2", lambda: fusion.knn(pts_batch, pix_batch, k), lambda: reference.knn(pts_batch, pix_batch, k)),
         ("fps long rows, batch of 2", lambda: fps.farthest_point_sample(long_rows, 256), lambda: reference.farthest_point_sample(long_rows, 256)),
-        ("knn_fusion sentinel", lambda: fusion.knn(pts, pix_sentinel, k), lambda: reference.knn(pts, pix_sentinel, k)),
-        ("knn_fusion duplicates", lambda: fusion.knn(pts, pix_dup, k), lambda: reference.knn(pts, pix_dup, k)),
         ("fps masked", lambda: fps.farthest_point_sample(pts, sa1.npoint, valid), lambda: reference.farthest_point_sample(pts, sa1.npoint, valid)),
         ("fps duplicates", lambda: fps.farthest_point_sample(pts_dup, sa1.npoint), lambda: reference.farthest_point_sample(pts_dup, sa1.npoint)),
         ("ball_query masked", lambda: bq.ball_query(c1, pts, sa1.radius, sa1.nsample, valid), lambda: reference.ball_query(c1, pts, sa1.radius, sa1.nsample, valid)),
@@ -211,6 +228,20 @@ def kernel_phase(torch, cfg, batch) -> list[dict]:
         ("knn masked refs", lambda: brute.knn(pts, reference.mask_points(c1, valid[:, : c1.shape[1]]), 3), lambda: reference.knn(pts, reference.mask_points(c1, valid[:, : c1.shape[1]]), 3)),
         ("knn duplicates", lambda: brute.knn(pts, torch.cat([c1, c1], 1), 3), lambda: reference.knn(pts, torch.cat([c1, c1], 1), 3)),
     ]
+    # the fusion kNN in both modes (the route takes brute at this shape) on
+    # every query: sentinel pixels, exact duplicates (ties to the lower
+    # index), masked refs, and rows with fewer than k real refs (the rest tie
+    # at the 1e6 fill and the 1e9 mask sentinel)
+    pix_masked = reference.mask_points(pix, torch.rand(pix.shape[:2], generator=g, device=pix.device) > 0.3)
+    pix_few = torch.full_like(pix, 1e6)
+    pix_few[:, 1::7] = reference.MASK_COORD
+    pix_few[:, [5, pix.shape[1] - 3]] = pix[:, [5, pix.shape[1] - 3]]
+    for mode in fusion.MODES:
+        for label, q, r in [("batch of 2", pts_batch, pix_batch), ("sentinel", pts, pix_sentinel),
+                            ("duplicates", pts, pix_dup), ("masked refs", pts, pix_masked),
+                            ("fewer than k real refs", pts, pix_few)]:
+            checks.append((f"knn_fusion {mode} {label}", lambda q=q, r=r, mode=mode: fusion.knn(q, r, k, mode=mode),
+                           lambda q=q, r=r: reference.knn(q, r, k)))
     # ragged edges: tails of tiles, slices and warps; k = N; K > 32; npoint > N
     q37, r5, r2049, q300, r33k, p33, p5, p100 = (
         rnd(2, 37, 3), rnd(2, 5, 3), rnd(1, 2049, 3), rnd(2, 300, 3), rnd(2, 33000, 3), rnd(3, 33, 3), rnd(1, 5, 3), rnd(2, 100, 3)
@@ -218,7 +249,8 @@ def kernel_phase(torch, cfg, batch) -> list[dict]:
     checks += [
         ("knn edges k=N", lambda: brute.knn(q37, r5, 5), lambda: reference.knn(q37, r5, 5)),
         ("knn edges tile tail k=8", lambda: brute.knn(q37[:1], r2049, 8), lambda: reference.knn(q37[:1], r2049, 8)),
-        ("knn_fusion edges k=8", lambda: fusion.knn(q300, r33k, 8), lambda: reference.knn(q300, r33k, 8)),
+        ("knn_fusion demand edges k=8", lambda: fusion.knn(q300, r33k, 8, mode="demand"), lambda: reference.knn(q300, r33k, 8)),
+        ("knn_fusion brute edges k=8", lambda: fusion.knn(q300, r33k, 8, mode="brute"), lambda: reference.knn(q300, r33k, 8)),
         ("fps edges npoint=N", lambda: fps.farthest_point_sample(p33, 33), lambda: reference.farthest_point_sample(p33, 33)),
         ("fps edges npoint>N", lambda: fps.farthest_point_sample(p5, 8), lambda: reference.farthest_point_sample(p5, 8)),
         ("ball_query edges K=N", lambda: bq.ball_query(q37, p100[:, :40], 1.5, 40), lambda: reference.ball_query(q37, p100[:, :40], 1.5, 40)),
@@ -228,17 +260,26 @@ def kernel_phase(torch, cfg, batch) -> list[dict]:
         same(torch, name, kern(), plain())
         print(f"  {name}: equal", flush=True)
 
-    B, M, N, Nc = pts.shape[0], pts.shape[1], pix.shape[1], c1.shape[1]
+    shape = f"{pts.shape[0]}x{pts.shape[1]} queries over {pix.shape[1]} refs, k={k}"
+    main = [fusion_case(torch, pts, pix, k, shape)] + path_cases(torch, cfg, pts)
+    return [measure(torch, case) for case in main]
+
+
+def path_cases(torch, cfg, pts) -> list[dict]:
+    """measure() cases of FPS, ball query and three-NN at a chunk path's
+    shapes (the chunk request's and the train step's): SA1 FPS, SA1 ball
+    query over its centers, the three-NN of every point over them."""
+    from mvpnet_torch.models.pointnet2 import gather_points
+    from mvpnet_torch.ops import KERNELS, reference
+
+    fps, bq, brute = (KERNELS[k] for k in ("fps", "ball_query", "knn"))
+    sa1 = cfg.model.pn2.sa[0]
+    c1 = gather_points(pts, fps.farthest_point_sample(pts, sa1.npoint))
+    B, M, Nc = pts.shape[0], pts.shape[1], c1.shape[1]
     bq_idx, bq_cnt = reference.ball_query(c1, pts, sa1.radius, sa1.nsample)
     # pairs the ball query's walk needs: up to its K-th hit, else every point
     bq_pairs = torch.where(bq_cnt == sa1.nsample, bq_idx[..., -1].long() + 1, M).sum().item()
-    main = [
-        dict(
-            name="knn_fusion", shape=f"{B}x{M} queries over {N} refs, k={k}",
-            kern=lambda: fusion.knn(pts, pix, k), plain=lambda: reference.knn(pts, pix, k),
-            library=lambda: torch.cdist(pts, pix),
-            ops=9.0 * B * M * N, nbytes=4.0 * (3 * B * M + 3 * B * N + 2 * B * M * k),
-        ),
+    return [
         dict(
             name="fps", shape=f"{B}x{M} points -> {sa1.npoint}",
             kern=lambda: fps.farthest_point_sample(pts, sa1.npoint),
@@ -260,7 +301,59 @@ def kernel_phase(torch, cfg, batch) -> list[dict]:
             ops=9.0 * B * M * Nc, nbytes=4.0 * (3 * B * M + 3 * B * Nc + 2 * B * M * 3),
         ),
     ]
-    return [measure(torch, case) for case in main]
+
+
+def fusion_case(torch, q, r, k, shape, subset=None, prepared=None) -> dict:
+    """measure() case of the fusion kNN (row 1) on one search, through its
+    route's mode (or knn_prepared on ``prepared``, r's prepared cloud). The
+    first ``subset`` queries of each row of the full run (every query when
+    None) are held against the plain version in both modes, and both modes
+    are timed, their preparation included. The bound counts the pairs the
+    route's mode scans (the kernel counts them in the demand mode), the
+    all-pairs bound beside it."""
+    from mvpnet_torch import ops
+    from mvpnet_torch.ops import KERNELS, reference
+
+    fusion = KERNELS["knn_fusion"]
+    B, M, N = q.shape[0], q.shape[1], r.shape[1]
+    mode = "demand" if prepared is not None else fusion.route(B, M, N)
+    rows = M if subset is None else subset
+    reps = 3 if B * M * N > 1 << 36 else KERNEL_REPS
+
+    def run(mode=mode, scanned=None):
+        if prepared is not None:
+            return fusion.knn_prepared(q, prepared, k, scanned=scanned)
+        return fusion.knn(q, r, k, mode=mode, scanned=scanned)
+
+    q_sub = q[:, :rows].contiguous()
+    want = reference.knn(q_sub, r, k)
+    modes = {}
+    for m in (mode,) if prepared is not None else fusion.MODES:
+        scanned = torch.zeros(1, dtype=torch.int64, device=q.device)
+        got = run(m, scanned)
+        same(torch, f"knn_fusion {m} [{shape}]", tuple(x[:, :rows] for x in got), want)
+        if prepared is not None:
+            same(torch, f"knn_prepared vs knn [{shape}]", got, fusion.knn(q, r, k, mode="demand"))
+        pairs = scanned.item() if m == "demand" else B * M * N
+        modes[m] = {"ms": cuda_ms(torch, lambda m=m: run(m), reps), "scanned_pairs": pairs,
+                    "scanned_fraction": pairs / (B * M * N)}
+        print(f"  knn_fusion {m}{' (knn_prepared)' if prepared is not None else ''} [{shape}]: equal on the first "
+              f"{rows} queries of each row of the full run{', and to knn in full' if prepared is not None else ''}; "
+              f"{modes[m]['ms']:.4f} ms, {modes[m]['scanned_fraction']:.4f} of the pairs scanned", flush=True)
+    ops.reset_launch_counts()
+    run()
+    if ops.launch_counts()["knn_fusion"] != 1:
+        fail(f"knn_fusion [{shape}]: one call launched {ops.launch_counts()}")
+    return dict(
+        name="knn_fusion", shape=shape, reps=reps,
+        kern=run, check=lambda: tuple(x[:, :rows] for x in run()), rows_of_full_run=True,
+        plain=lambda: reference.knn(q_sub, r, k),
+        plain_shape=f"{B}x{rows} queries (the first of each row) of the full search",
+        library=lambda: torch.cdist(q_sub, r),
+        ops=9.0 * modes[mode]["scanned_pairs"], ops_all_pairs=9.0 * B * M * N,
+        nbytes=4.0 * (3 * B * M + 3 * B * N + 2 * B * M * k),
+        extra={"mode": mode, "modes": modes},
+    )
 
 
 def measure(torch, case: dict) -> dict:
@@ -288,6 +381,7 @@ def measure(torch, case: dict) -> dict:
             row["ms_on_plain_shape"] = cuda_ms(torch, check, reps)
     if "ops_all_pairs" in case:  # a gated kernel: the bound counts the pairs its gate let through
         row["bound_ms_all_pairs"] = bound_ms(case["ops_all_pairs"], case["nbytes"])[0]
+    row.update(case.get("extra", {}))
     print(f"  {case['name']} [{case['shape']}]: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain"
           f"{' [' + case['plain_shape'] + ']' if 'check' in case else ''}, "
           f"library {lib_ms}, bound {b_ms:.6f} ms ({b_by})", flush=True)
@@ -463,7 +557,7 @@ def scene_kernel_cases(torch, cfg, pts, pix):
     from mvpnet_torch.models.pointnet2 import gather_points
     from mvpnet_torch.ops import KERNELS, reference
 
-    fusion, fps, bq, brute = (KERNELS[k] for k in ("knn_fusion", "fps", "ball_query", "knn"))
+    fps, bq, brute = (KERNELS[k] for k in ("fps", "ball_query", "knn"))
     sa1, sa2 = cfg.model.pn2.sa[0], cfg.model.pn2.sa[1]
     k = cfg.model.aggregation.k
     B, M, N = pts.shape[0], pts.shape[1], pix.shape[1]
@@ -476,27 +570,25 @@ def scene_kernel_cases(torch, cfg, pts, pix):
     valid[-2, : M // 2] = False
     valid[-1] = False  # no valid point: seed 0, and every step takes index 0
     short = torch.rand((2, 14600, 3), generator=g, device=pts.device) * 6  # just over shared memory
+    # the TPU wrapper's longest row: each CTA keeps part of its slice in the
+    # device-memory overflow
+    longest = torch.rand((1, 1 << 19, 3), generator=g, device=pts.device) * 6
     for name, kern, plain in [
         ("fps_perrow masked", lambda: fps.farthest_point_sample(pts, sa1.npoint, valid),
          lambda: reference.farthest_point_sample(pts, sa1.npoint, valid)),
         ("fps_perrow edges npoint>N", lambda: fps.farthest_point_sample(short, 14650),
          lambda: reference.farthest_point_sample(short, 14650)),
+        ("fps_perrow 2^19 points (overflow)", lambda: fps.farthest_point_sample(longest, 1024),
+         lambda: reference.farthest_point_sample(longest, 1024)),
     ]:
         same(torch, name, kern(), plain())
         print(f"  {name}: equal", flush=True)
+    del longest
     bq_idx, bq_cnt = reference.ball_query(c1, pts, sa1.radius, sa1.nsample)
     bq_pairs = torch.where(bq_cnt == sa1.nsample, bq_idx[..., -1].long() + 1, M).sum().item()
     del bq_idx, bq_cnt
-    q = pts[:, :FUSION_SUBSET].contiguous()
-    subset = f"{B}x{FUSION_SUBSET} queries (the first of each row) over {N} refs"
     return [
-        dict(
-            name="knn_fusion", shape=f"{B}x{M} queries over {N} refs, k={k}", reps=3,
-            kern=lambda: fusion.knn(pts, pix, k), check=lambda: fusion.knn(q, pix, k),
-            plain=lambda: reference.knn(q, pix, k), plain_shape=subset,
-            library=lambda: torch.cdist(q, pix),
-            ops=9.0 * B * M * N, nbytes=4.0 * (3 * B * M + 3 * B * N + 2 * B * M * k),
-        ),
+        fusion_case(torch, pts, pix, k, f"{B}x{M} queries over {N} refs, k={k}", subset=FUSION_SUBSET),
         dict(
             name="fps", shape=f"{B}x{Nc} points -> {sa2.npoint} (SA2)",
             kern=lambda: fps.farthest_point_sample(c1, sa2.npoint),
@@ -521,6 +613,7 @@ def scene_kernel_cases(torch, cfg, pts, pix):
             kern=lambda: fps.farthest_point_sample(pts, sa1.npoint),
             plain=lambda: reference.farthest_point_sample(pts, sa1.npoint), library=None,
             ops=10.0 * B * (sa1.npoint - 1) * M, nbytes=4.0 * (3 * B * M + B * sa1.npoint),
+            extra={"cluster": fps.CLUSTER},
         ),
     ]
 
@@ -558,13 +651,11 @@ def gated_case(torch, name, q, r, k, shape, reps=KERNEL_REPS) -> dict:
 def scene_phase(torch, evaluate, model, cfg):
     from mvpnet_torch import ops
     from mvpnet_torch.config import load_config
-    from mvpnet_torch.data.pipeline import collate
     from mvpnet_torch.data.synthetic import make_scene
-    from mvpnet_torch.entry import HIGHRES_CONFIG, to_device
+    from mvpnet_torch.entry import HIGHRES_CONFIG
     from mvpnet_torch.eval import whole_scene
     from mvpnet_torch.eval.scene_fused import predict_scene_fused
     from mvpnet_torch.eval.sharded_scene import enumerate_scene_chunks
-    from mvpnet_torch.train.step import prepare_batch
 
     t0 = time.perf_counter()
     scene = make_scene(SCENE_SEED, **SCENE_SHAPE)
@@ -602,17 +693,8 @@ def scene_phase(torch, evaluate, model, cfg):
     print(f"  predict_scene: {predict_s:.3f} s, forward {forward_ms} ms, logits {logits.shape} finite", flush=True)
 
     # (b) kernels against their plain versions on this path's inputs
-    samples = list(whole_scene._iter_scene_samples(
-        scene, cfg, whole_scene.enumerate_chunk_centers(scene.points, cfg.data.chunk_size, cfg.data.chunk_stride), 0
-    ))
-    for s in samples:
-        s.pop("point_idx")
-        s.pop("colors")
     with torch.no_grad():
-        batch = prepare_batch(cfg, to_device(collate(samples), "cuda"), training=False)
-        pts = batch["points"].float().contiguous()
-        pix = batch["image_xyz"].reshape(pts.shape[0], -1, 3).contiguous()
-        del batch, samples
+        pts, pix = scene_fusion_inputs(torch, cfg, scene)
         rows = [measure(torch, case) for case in scene_kernel_cases(torch, cfg, pts, pix)]
         # row 6's subgroup-gated body: refs >= 2^18 take tiles of 8192
         k = cfg.model.aggregation.k
@@ -665,6 +747,13 @@ def scene_phase(torch, evaluate, model, cfg):
         fail(f"fused estimator logits {fused_logits.shape}, finite={bool(np.isfinite(fused_logits).all())}")
     print(f"  evaluate_scenes(fused=True): {fused_s:.3f} s, launches {fused_counts}, logits finite, "
           f"mIoU {fused_results['miou']:.4f}", flush=True)
+    with torch.no_grad():
+        fused_row = measure(torch, fused_prepared_case(torch, model, cfg, scene))
+    fused_row["launches"] = fused_counts["knn_fusion"]  # per fused scene (one group of windows)
+
+    # (e) where row 1's two modes cross
+    with torch.no_grad():
+        crossing = crossover(torch, scene)
     summary = {
         "config": os.path.relpath(HIGHRES_CONFIG, os.path.dirname(os.path.abspath(__file__))),
         "scene": {"seed": SCENE_SEED, **SCENE_SHAPE, "windows": len(chunks), "make_s": make_s},
@@ -682,8 +771,81 @@ def scene_phase(torch, evaluate, model, cfg):
         "fused_s": fused_s,
         "fused_launches": fused_counts,
         "fused_miou": fused_results["miou"],
+        "crossover": crossing,
     }
-    return summary, rows, subgate
+    return summary, rows, subgate, fused_row
+
+
+def scene_fusion_inputs(torch, cfg, scene):
+    """The fusion kNN's inputs of one forward over the scene's windows at
+    ``cfg``: chunk points (B, N, 3) and pixel refs (B, V * H * W, 3) on the
+    card."""
+    from mvpnet_torch.data.pipeline import collate
+    from mvpnet_torch.entry import to_device
+    from mvpnet_torch.eval import whole_scene
+    from mvpnet_torch.train.step import prepare_batch
+
+    centers = whole_scene.enumerate_chunk_centers(scene.points, cfg.data.chunk_size, cfg.data.chunk_stride)
+    samples = list(whole_scene._iter_scene_samples(scene, cfg, centers, 0))
+    for s in samples:
+        s.pop("point_idx")
+        s.pop("colors")
+    batch = prepare_batch(cfg, to_device(collate(samples), "cuda"), training=False)
+    pts = batch["points"].float().contiguous()
+    return pts, batch["image_xyz"].reshape(pts.shape[0], -1, 3).contiguous()
+
+
+def crossover(torch, scene) -> list[dict]:
+    """(e): row 1 in both modes at the CROSSOVER shapes, on the scene's
+    windows: each mode equal to the plain version on the first FUSION_SUBSET
+    queries of each row and timed with its prep; the route's mode beside the
+    faster one."""
+    from mvpnet_torch.config import load_config
+    from mvpnet_torch.entry import HIGHRES_CONFIG
+    from mvpnet_torch.ops import KERNELS
+
+    fusion = KERNELS["knn_fusion"]
+    out = []
+    for n_points, views in CROSSOVER:
+        cfg = load_config(HIGHRES_CONFIG, [f"data.num_points={n_points}", f"data.num_views_eval={views}"])
+        pts, pix = scene_fusion_inputs(torch, cfg, scene)
+        B, M, N = pts.shape[0], pts.shape[1], pix.shape[1]
+        k = cfg.model.aggregation.k
+        modes = fusion_case(torch, pts, pix, k, f"{B}x{M} queries over {N} refs, k={k}", subset=FUSION_SUBSET)["extra"]["modes"]
+        ms = {m: v["ms"] for m, v in modes.items()}
+        row = {"num_points": n_points, "views": views, "pairs": B * M * N, "route": fusion.route(B, M, N),
+               "faster": min(ms, key=ms.get), "brute_ms": ms["brute"], "demand_ms": ms["demand"],
+               "demand_scanned_fraction": modes["demand"]["scanned_fraction"]}
+        print(f"  crossover {B}x{M} queries over {N} refs ({row['pairs']:.3g} pairs): brute {ms['brute']:.4f} ms, "
+              f"demand {ms['demand']:.4f} ms; faster {row['faster']}, route {row['route']}", flush=True)
+        out.append(row)
+        del pts, pix
+        torch.cuda.empty_cache()
+    return out
+
+
+def fused_prepared_case(torch, model, cfg, scene) -> dict:
+    """(d): row 1 through knn_prepared on the fused estimator's inputs: the
+    scene's prepared pixel cloud (ops.knn_prepare) and the first group of
+    chunk windows as one query set, as predict_scene_fused runs them."""
+    from mvpnet_torch import ops
+    from mvpnet_torch.eval.scene_fused import build_scene_fused_fns
+    from mvpnet_torch.eval.sharded_scene import enumerate_scene_chunks, select_scene_views
+
+    pixel_fn, _, _ = build_scene_fused_fns(model, cfg)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+
+    frames = select_scene_views(scene, min(cfg.eval.scene_views, len(scene.depth)))
+    pixel_xyz, _ = pixel_fn(put(scene.rgb[frames]), put(scene.depth[frames]), put(scene.poses[frames]),
+                            put(scene.intrinsics))
+    group = enumerate_scene_chunks(scene, cfg)[: cfg.eval.batch_size]
+    q = put(np.stack([c[1] for c in group])).reshape(1, -1, 3)
+    prepared = ops.knn_prepare(pixel_xyz)
+    k = cfg.model.aggregation.k
+    return fusion_case(torch, q, pixel_xyz, k, f"knn_prepared: 1x{q.shape[1]} queries over the scene's "
+                       f"prepared cloud of {pixel_xyz.shape[1]} refs, k={k}", subset=FUSION_SUBSET, prepared=prepared)
 
 
 def train_steps(torch, ops, step, batches, model, optimizer, accum: int) -> dict:
@@ -830,7 +992,8 @@ def train_phase(torch):
     checkpoint_round_trip(torch, model, optimizer)
     summary["variants"] = variant_steps(torch, ops, cfg, model, init_state, first, *loss_and_metrics(cfg))
     rows = train_kernel_rows(torch, cfg, first)
-    rows["knn_fusion"]["launches"] = summary["steps"][0]["launches_per_step"]["knn_fusion"]
+    for name in ("knn_fusion", "fps", "ball_query", "knn"):
+        rows[name]["launches"] = summary["steps"][0]["launches_per_step"][name]
     for name in ("knn_gated", "knn_resident"):
         rows[name]["launches"] = summary["variants"]["launches"][name]
     del step, model, optimizer, batches, init_state, first
@@ -875,16 +1038,11 @@ def train_kernel_rows(torch, cfg, batch) -> dict:
                 print(f"  {name} {label}: equal", flush=True)
         del masked, dup
         shape = f"{B}x{M} queries over {N} refs, k={k}"
-        q_sub = pts[:, :FUSION_SUBSET].contiguous()
-        fusion = KERNELS["knn_fusion"]
         out = {name: measure(torch, gated_case(torch, name, pts, pix, k, shape)) for name in ("knn_gated", "knn_resident")}
-        out["knn_fusion"] = measure(torch, dict(
-            name="knn_fusion", shape=shape, kern=lambda: fusion.knn(pts, pix, k),
-            check=lambda: fusion.knn(q_sub, pix, k), plain=lambda: reference.knn(q_sub, pix, k),
-            plain_shape=f"{B}x{FUSION_SUBSET} queries (the first of each row) over {N} refs",
-            library=lambda: torch.cdist(q_sub, pix),
-            ops=9.0 * B * M * N, nbytes=4.0 * (3 * B * M + 3 * B * N + 2 * B * M * k),
-        ))
+        out["knn_fusion"] = measure(torch, fusion_case(torch, pts, pix, k, shape, subset=FUSION_SUBSET))
+        # rows 2-4 at the train step's shapes
+        for case in path_cases(torch, cfg, pts):
+            out[case["name"]] = measure(torch, case)
     return out
 
 
@@ -920,7 +1078,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     print("scene phase:", flush=True)
     evaluate, (scene_model, scene_cfg) = scene_entry()
-    scene_summary, rows, subgate = scene_phase(torch, evaluate, scene_model, scene_cfg)
+    scene_summary, rows, subgate, fused_row = scene_phase(torch, evaluate, scene_model, scene_cfg)
     del evaluate, scene_model
     torch.cuda.empty_cache()
     print("train phase:", flush=True)
@@ -933,7 +1091,11 @@ def main() -> None:
     for row in rows:  # the chunk path's numbers of the kernels it runs
         if row["name"] in chunk:
             row["chunk_path"] = path(chunk[row["name"]])
-    next(row for row in rows if row["name"] == "knn_fusion")["train_path"] = path(train_rows["knn_fusion"])
+    for row in rows:  # the train path's and the fused estimator's numbers
+        if row["name"] in train_rows:
+            row["train_path"] = path(train_rows[row["name"]])
+        if row["name"] == "knn_fusion":
+            row["fused_path"] = path(fused_row)
     subgate["launches"] = 0  # the scene path's fusion kNN is row 1
     train_rows["knn_gated"]["scene_path"] = path(subgate)
     rows += [train_rows["knn_gated"], train_rows["knn_resident"]]

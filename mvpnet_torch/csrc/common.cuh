@@ -45,6 +45,37 @@ __device__ __forceinline__ void mvp_topk_insert(float (&bd)[K], int (&bi)[K],
   }
 }
 
+// Min (max) of v over the W consecutive lanes of this thread's group (W a
+// power of two <= 32): the query subgroups of the gated kernels.
+template <int W>
+__device__ __forceinline__ float mvp_group_min(float v) {
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(MVP_FULL_MASK, v, o, W));
+  return v;
+}
+template <int W>
+__device__ __forceinline__ float mvp_group_max(float v) {
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(MVP_FULL_MASK, v, o, W));
+  return v;
+}
+
+// Least squared distance between the boxes [alo, ahi] and [blo, bhi], in the
+// order and rounding of mvp_sqdist (and of ops/morton.py::box_sqdist): every
+// gap is at most the matching |difference| of any two points in the boxes,
+// and the rounding is monotone, so the bound is <= every such distance in
+// f32 too. An empty box (lo = +inf, hi = -inf) gives +inf.
+__device__ __forceinline__ float mvp_box_sqdist(const float (&alo)[3], const float (&ahi)[3],
+                                                const float* blo, const float* bhi) {
+  float g2[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float gap = fmaxf(0.f, fmaxf(__fsub_rn(alo[d], bhi[d]), __fsub_rn(blo[d], ahi[d])));
+    g2[d] = __fmul_rn(gap, gap);
+  }
+  return __fadd_rn(__fadd_rn(g2[0], g2[1]), g2[2]);
+}
+
 // Max of v over the block, returned to every thread. `red` holds one float a
 // warp; blockDim.x is a multiple of 32, and every thread must call it.
 __device__ __forceinline__ float mvp_block_max(float v, float* red) {

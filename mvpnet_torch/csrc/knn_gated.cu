@@ -85,18 +85,6 @@ __device__ __forceinline__ void tile_box(const float* tile, int tile_n,
   }
 }
 
-// Min (max) of v over the 8 lanes of this thread's subgroup.
-__device__ __forceinline__ float sub_min(float v) {
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(MVP_FULL_MASK, v, o, kSub));
-  return v;
-}
-__device__ __forceinline__ float sub_max(float v) {
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(MVP_FULL_MASK, v, o, kSub));
-  return v;
-}
-
 template <int K>
 __global__ void knn_gated_kernel(const float* __restrict__ q,
                                  const float* __restrict__ r,
@@ -126,8 +114,8 @@ __global__ void knn_gated_kernel(const float* __restrict__ q,
     const float c[3] = {qx, qy, qz};
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      glo[d] = sub_min(active ? c[d] : inf);
-      ghi[d] = sub_max(active ? c[d] : -inf);
+      glo[d] = mvp_group_min<kSub>(active ? c[d] : inf);
+      ghi[d] = mvp_group_max<kSub>(active ? c[d] : -inf);
     }
   }
   float bd[K];
@@ -154,13 +142,8 @@ __global__ void knn_gated_kernel(const float* __restrict__ q,
     if (sub_gate) {
       float rlo[3], rhi[3];
       tile_box(tile, tile_n, rlo, rhi, red);
-      float lb_sub = 0.f;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const float gap = fmaxf(0.f, fmaxf(glo[d] - rhi[d], rlo[d] - ghi[d]));
-        lb_sub = __fadd_rn(lb_sub, __fmul_rn(gap, gap));
-      }
-      const float worst_sub = sub_max(active ? bd[K - 1] : -inf);
+      const float lb_sub = mvp_box_sqdist(glo, ghi, rlo, rhi);
+      const float worst_sub = mvp_group_max<kSub>(active ? bd[K - 1] : -inf);
       scan = active && lb_sub < worst_sub;
     }
     if (scan) {

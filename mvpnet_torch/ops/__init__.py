@@ -28,6 +28,10 @@ picks the fusion kernel, the counterpart of that file's ``_USE_DEMAND`` and
   * ``"resident"`` (``use_vmem=True``): ``knn_resident``
     (``csrc/knn_resident.cu``), at most 2^17 refs.
 
+``knn_prepare`` prepares a large cloud on the card once (Morton sort,
+tile boxes) and ``knn_prepared`` then runs the fusion kernel's demand mode
+on it, as the JAX package's prepared path does.
+
 ``knn`` and ``knn_prepared`` are differentiable in the distances (a
 ``torch.autograd.Function`` whose backward is ``_knn_bwd``'s plain math,
 ``mvpnet_tpu/ops/pallas/knn.py:180``); indices carry no gradient, nor do
@@ -117,8 +121,11 @@ class _KnnFunction(torch.autograd.Function):
     dq = sum_k g * 2(q - r[idx]) and dr the index_add_ of -g (duplicates add)."""
 
     @staticmethod
-    def forward(ctx, queries, refs, k):
-        d, idx = _knn_search(queries, refs, k)
+    def forward(ctx, queries, refs, k, prepared=None):
+        if prepared is None or _plain(queries):
+            d, idx = _knn_search(queries, refs, k)
+        else:  # refs prepared by knn_prepare: the fusion kernel's demand mode
+            d, idx = _knn_bucketed.knn_prepared(queries, prepared, k)
         ctx.mark_non_differentiable(idx)
         ctx.save_for_backward(queries, refs, idx)
         return d, idx
@@ -139,7 +146,7 @@ class _KnnFunction(torch.autograd.Function):
             dr = torch.zeros((B * N, 3), dtype=torch.float32, device=r.device)
             dr.index_add_(0, rows, -g.reshape(B * M * k, 3))
             dr = dr.reshape(B, N, 3).to(refs.dtype)
-        return dq, dr, None
+        return dq, dr, None, None
 
 
 def _knn_dispatch(queries, refs, k):
@@ -174,21 +181,30 @@ def three_nn_interpolate(dense_xyz, sparse_xyz, sparse_feat, eps: float = 1e-8):
 
 
 class RawRefs:
-    """``knn_prepare`` result: the refs as they are. The Morton sort and tile
-    bounds of the JAX package's prepared cloud come with the gated fusion kNN
-    (not ported yet); until then ``knn_prepared`` searches the raw refs."""
+    """``knn_prepare`` result where nothing is prepared: the refs as they
+    are, searched by the dispatched ``knn`` (the JAX package's ``RawRefs``)."""
 
     def __init__(self, refs):
         self.refs = refs
 
 
-def knn_prepare(refs) -> RawRefs:
-    """Prepare a ref cloud once for many ``knn_prepared`` queries."""
-    return RawRefs(refs)
+def knn_prepare(refs):
+    """Prepare a ref cloud once for many ``knn_prepared`` queries, as
+    ``mvpnet_tpu/ops/__init__.py::knn_prepare`` does: a cloud of at least
+    2^15 refs on the card becomes a ``morton.PreparedRefs`` (Morton-sorted
+    by its own real box, padded, tile boxes, the float4 layout of the
+    demand-gated fusion kNN, and the raw refs for the backward); anything
+    else, and every cloud under the plain versions, a ``RawRefs``."""
+    if _plain(refs) or not refs.is_cuda or refs.shape[1] < _knn_bucketed.MIN_N:
+        return RawRefs(refs)
+    return _knn_bucketed.prepare(refs)
 
 
-def knn_prepared(queries, prepared: RawRefs, k: int):
-    """kNN against a ``knn_prepare`` result; the contract of ``knn``, the
-    same route (the fusion kernel for a large cloud on the card) and the same
-    gradient (to the queries and to ``prepared.refs``)."""
-    return _knn_dispatch(queries, prepared.refs, k)
+def knn_prepared(queries, prepared, k: int):
+    """kNN against a ``knn_prepare`` result; the contract of ``knn``. A
+    prepared cloud takes the fusion kernel's demand mode (only the query
+    side is prepared per call); a ``RawRefs`` the dispatched ``knn``. The
+    gradient is ``knn``'s, to the queries and to ``prepared.refs``."""
+    if isinstance(prepared, RawRefs):
+        return _knn_dispatch(queries, prepared.refs, k)
+    return _KnnFunction.apply(queries, prepared.refs, k, prepared)

@@ -112,6 +112,10 @@ _SIGNATURES = {
     ("knn_fusion", "knn_fusion"): (
         _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
     ),
+    ("knn_fusion", "knn_fusion_demand"): (
+        _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+        _PTR, _PTR, _PTR, _PTR,
+    ),
     ("knn_gated", "knn_gated"): (
         _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
     ),
@@ -119,7 +123,7 @@ _SIGNATURES = {
         _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
     ),
     ("fps", "fps"): (_PTR, _PTR, _INT, _INT, _INT, _PTR, _PTR),
-    ("fps", "fps_perrow"): (_PTR, _PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR),
+    ("fps", "fps_perrow"): (_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR),
     ("fps", "fps_shared_bytes"): (_INT_OUT,),
     ("ballquery", "ball_query"): (
         _PTR, _PTR, _INT, _INT, _INT, _FLOAT, _INT, _PTR, _PTR, _PTR,

@@ -4,7 +4,11 @@ Counterpart of the jnp preparation in ``mvpnet_tpu/ops/pallas/knn_bucketed.py``
 (``_morton_code`` :99, ``_tile_bounds`` :116, ``_box_sqdist`` :130,
 ``_prepare`` :693, ``_inverse_perm`` :600, ``_unmap`` :610) with its
 constants (:58-83). It runs on the tensor's device; the gated kernels
-(``csrc/knn_gated.cu``, ``csrc/knn_resident.cu``) take its output.
+(``csrc/knn_gated.cu``, ``csrc/knn_resident.cu``) take ``prepare``'s output,
+the demand mode of the fusion kNN (``csrc/knn_fusion.cu``) that of
+``prepare_refs`` (``prepare_refs`` :887, the ref side, once per cloud) and
+``prepare_queries`` (``_knn_prepared_impl`` :935, the query side), which also
+bound each ref tile's sentinel refs.
 
   1. Queries and refs are sorted by a 30-bit Morton code over the queries'
      bounding box, so consecutive slabs are spatially compact.
@@ -40,6 +44,12 @@ SENTINEL_MIN = 1e5
 VMEM_N_MAX = 1 << 17
 VMEM_TILE_M = 64
 VMEM_TILE_N = 1024
+# the demand-gated fusion kNN (csrc/knn_fusion.cu, knn_bucketed.py:65-71):
+# query tiles of 128 rows and ref tiles of 4096 from BIG_N refs up, 64 and
+# TILE_N below
+DEMAND_TILE_M = 128
+DEMAND_TILE_M_SMALL = 64
+DEMAND_TILE_N_BIG = 4096
 
 
 def morton_code(xyz: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -58,15 +68,20 @@ def morton_code(xyz: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.
     return spread(cell[..., 0]) | (spread(cell[..., 1]) << 1) | (spread(cell[..., 2]) << 2)
 
 
-def tile_bounds(sorted_xyz: torch.Tensor, tile: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, N, 3) -> per-tile boxes lo, hi (B, N // tile, 3) over real points;
-    an all-sentinel tile gets (+inf, -inf): an infinite lower bound."""
+def real_points(xyz: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (...) bool: the points that are no sentinel."""
+    return torch.all(xyz.abs() < SENTINEL_MIN, dim=-1)
+
+
+def tile_bounds(sorted_xyz: torch.Tensor, tile: int, mask=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, N, 3) -> per-tile boxes lo, hi (B, N // tile, 3) over the points
+    that ``mask`` (B, N) selects, the real points when None; a tile without
+    one gets (+inf, -inf): an infinite lower bound."""
     B, N, _ = sorted_xyz.shape
     t = sorted_xyz.reshape(B, N // tile, tile, 3)
-    real = torch.all(t.abs() < SENTINEL_MIN, dim=-1, keepdim=True)
-    inf = torch.tensor(float("inf"), dtype=t.dtype, device=t.device)
-    lo = torch.where(real, t, inf).amin(dim=2)
-    hi = torch.where(real, t, -inf).amax(dim=2)
+    m = (real_points(sorted_xyz) if mask is None else mask).reshape(B, N // tile, tile, 1)
+    lo = torch.where(m, t, float("inf")).amin(dim=2)
+    hi = torch.where(m, t, float("-inf")).amax(dim=2)
     return lo, hi
 
 
@@ -126,6 +141,88 @@ def prepare(queries: torch.Tensor, refs: torch.Tensor, tile_m: int, tile_n: int)
     order = torch.argsort(lb, dim=-1, stable=True)  # nearest tiles first
     lb_sorted = torch.gather(lb, -1, order).contiguous()
     return Prepared(q_sorted, r_sorted, q_order, r_order, order.to(torch.int32).contiguous(), lb_sorted, tile_m, tile_n)
+
+
+class PreparedRefs(NamedTuple):
+    """A ref cloud prepared for the demand-gated fusion kNN (the counterpart
+    of ``knn_bucketed.py::PreparedRefs``, ``prepare_refs`` :887).
+
+    r4 (B, N_pad, 4) f32: the Morton-sorted refs padded with PAD_COORD, the
+    original index's int32 bits in the 4th coordinate (JAX's r_order; -1 for
+    padding); boxes (B, Nt, 12) f32 each tile's box over its real refs (JAX's
+    rlo, rhi) and over its sentinel refs (|c| >= SENTINEL_MIN; the padding is
+    no ref): real lo, real hi, sentinel lo, sentinel hi, an empty box as
+    (+inf, -inf); refs the raw (B, N, 3) refs, which the backward uses."""
+
+    r4: torch.Tensor
+    boxes: torch.Tensor
+    refs: torch.Tensor
+    n: int
+    tile_n: int
+
+
+def demand_tiles(M: int, N: int) -> tuple[int, int, bool]:
+    """(tile_m, tile_n, sub_gate) of the demand-gated kernel for M queries
+    over N refs, as ``_knn_forward_demand``: 128 / 4096 and the sub-gate
+    from BIG_N refs up, 64 / 2048 below, query tiles no taller than the
+    queries (at least SUB rows, rounded up to a multiple of SUB: a warp of
+    the kernel holds SUB rows)."""
+    big = N >= BIG_N
+    rows = -(-max(SUB, M) // SUB) * SUB
+    return min(DEMAND_TILE_M if big else DEMAND_TILE_M_SMALL, rows), (DEMAND_TILE_N_BIG if big else TILE_N), big
+
+
+@torch.no_grad()
+def prepare_refs(refs: torch.Tensor, tile_n: int, lo=None, hi=None) -> PreparedRefs:
+    """Morton-sort a ref cloud, pad it to tiles and bound its tiles.
+
+    The quantization box is (lo, hi), (B, 1, 3) each, when given (the
+    per-call search boxes by its queries, as ``_prepare`` does), else the
+    refs' real coordinates (``prepare_refs``: the result does not depend on
+    any query). The box decides only how local the tiles are; the bounds
+    are taken over the refs themselves."""
+    B, N, _ = refs.shape
+    r = refs.float()
+    if lo is None:
+        real = real_points(r)[..., None]
+        lo = torch.where(real, r, float("inf")).amin(dim=1, keepdim=True)
+        hi = torch.where(real, r, float("-inf")).amax(dim=1, keepdim=True)
+    r_order = torch.argsort(morton_code(r, lo, hi), dim=1, stable=True)
+    r_sorted = _pad_rows(torch.gather(r, 1, r_order[..., None].expand(-1, -1, 3)), -(-N // tile_n) * tile_n)
+    n_pad = r_sorted.shape[1]
+    real = real_points(r_sorted)
+    rlo, rhi = tile_bounds(r_sorted, tile_n, real)
+    # the sentinel box: refs that are no real point and no padding
+    sentinel = ~real
+    sentinel[:, N:] = False
+    slo, shi = tile_bounds(r_sorted, tile_n, sentinel)
+    index = torch.full((B, n_pad, 1), -1, dtype=torch.int32, device=r.device)
+    index[:, :N, 0] = r_order
+    r4 = torch.cat([r_sorted, index.view(torch.float32)], dim=-1).contiguous()
+    boxes = torch.cat([rlo, rhi, slo, shi], dim=-1).contiguous()
+    return PreparedRefs(r4, boxes, refs, N, tile_n)
+
+
+@torch.no_grad()
+def prepare_queries(queries: torch.Tensor, p: PreparedRefs, tile_m: int):
+    """The query side of the demand-gated search (``_knn_prepared_impl``
+    :935-969): queries Morton-sorted by their own box and padded to tiles,
+    each query tile's box over its real rows (by index: no coordinate of a
+    query is read as a sentinel), and its bound to each ref tile, the least
+    of the bounds to the tile's real and sentinel boxes, so that it holds
+    for every ref in the tile. Returns q_sorted (B, M_pad, 3), q_order
+    (B, M), order (B, Mt, Nt) int32 ref tiles in ascending bound order
+    (stable), lb_sorted (B, Mt, Nt) f32."""
+    B, M, _ = queries.shape
+    q = queries.float()
+    q_order = torch.argsort(morton_code(q, q.amin(dim=1, keepdim=True), q.amax(dim=1, keepdim=True)), dim=1, stable=True)
+    q_sorted = _pad_rows(torch.gather(q, 1, q_order[..., None].expand(-1, -1, 3)), -(-M // tile_m) * tile_m).contiguous()
+    m_pad = q_sorted.shape[1]
+    qlo, qhi = tile_bounds(q_sorted, tile_m, (torch.arange(m_pad, device=q.device) < M).expand(B, m_pad))
+    b = p.boxes
+    lb = torch.minimum(box_sqdist(qlo, qhi, b[..., 0:3], b[..., 3:6]), box_sqdist(qlo, qhi, b[..., 6:9], b[..., 9:12]))
+    order = torch.argsort(lb, dim=-1, stable=True)
+    return q_sorted, q_order, order.to(torch.int32).contiguous(), torch.gather(lb, -1, order).contiguous()
 
 
 def inverse_perm(order: torch.Tensor) -> torch.Tensor:

@@ -29,9 +29,9 @@ from mvpnet_torch.entry import entry, example_batch
 
 # device kernels of the port's CUDA sources, by csrc file
 PORT_KERNELS = {
-    "knn_fusion": ("knn_slice_kernel", "knn_merge_kernel"),
+    "knn_fusion": ("knn_slice_kernel", "knn_merge_kernel", "knn_demand_kernel"),
     "fps": ("fps_shared_kernel",),
-    "fps_perrow": ("fps_perrow_kernel",),
+    "fps_perrow": ("fps_cluster_kernel",),
     "ball_query": ("ball_query_kernel",),
     "knn": ("knn_brute_kernel",),
     "knn_gated": ("knn_gated_kernel",),

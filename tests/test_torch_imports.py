@@ -4,6 +4,7 @@ chip smoke test that fails where it cannot run."""
 import ast
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -66,6 +67,26 @@ def test_kernel_sources_ship_with_the_repo(name):
     assert "mvpnet_tpu/ops/pallas/" in src  # names the TPU kernel it replaces
     assert 'extern "C"' in src and "cudaGetLastError" in src
     assert "sm_90a" in " ".join(_cuda.NVCC_FLAGS)
+
+
+def _c_kind(param: str) -> str:
+    param = param.replace("const ", "").strip()
+    return "ptr" if "*" in param else param.split()[0]
+
+
+_CTYPES_KIND = {_cuda._PTR: "ptr", _cuda._INT_OUT: "ptr", _cuda._INT: "int", _cuda._FLOAT: "float"}
+
+
+@pytest.mark.parametrize("lib,fn", sorted(_cuda._SIGNATURES), ids=lambda x: x)
+def test_ctypes_signatures_match_the_sources(lib, fn):
+    """The argtypes the wrappers declare equal the C entry point's
+    parameters, kind for kind: a ctypes call with another count fails only
+    on the card."""
+    src = (ROOT / "mvpnet_torch" / "csrc" / f"{lib}.cu").read_text()
+    match = re.search(r'extern "C" int\s+' + fn + r"\s*\(([^)]*)\)", src)
+    assert match, f'no extern "C" int {fn}(...) in csrc/{lib}.cu'
+    want = [_c_kind(p) for p in match.group(1).split(",")]
+    assert [_CTYPES_KIND[t] for t in _cuda._SIGNATURES[(lib, fn)]] == want
 
 
 def test_every_kernel_has_a_counted_wrapper():

@@ -301,6 +301,8 @@ def test_fusion_slicing_covers_refs(b, m, n, sms):
         lambda q, r: fps.farthest_point_sample(r, 4, valid_mask=torch.ones(1, 3, dtype=torch.bool)),
         lambda q, r: ballquery.ball_query(q, r, 0.1, 0),
         lambda q, r: ballquery.ball_query(q, r[:, :4], 0.1, 8),  # more slots than points
+        lambda q, r: knn_bucketed.knn(q, r, 3, mode="gated"),  # no such mode
+        lambda q, r: fps.farthest_point_sample(r, 0),  # npoint below 1
     ],
 )
 def test_wrappers_reject_bad_arguments(rng, call):
@@ -349,6 +351,37 @@ def test_fps_route(n, kernel):
     """SA1 at the high-resolution config (102,400) and at its reduced depth
     (16,384) take the per-row kernel; chunk-path rows the shared-memory one."""
     assert fps.route(n, H100_SHARED_BYTES) == kernel
+
+
+@pytest.mark.parametrize("n", [14529, 16384, 102400, 1 << 19])
+@pytest.mark.parametrize(
+    "shared",
+    # the H100's opt-in limit, and the portable 48 KB, each less the kernels'
+    # static shared memory
+    [H100_SHARED_BYTES - 2048, 48 * 1024 - 2048],
+    ids=["h100", "48k"],
+)
+def test_fps_cluster_split(n, shared):
+    """fps_perrow's slices: contiguous and ascending over [0, n), each split
+    into registers, then shared memory, then the device-memory overflow,
+    which only rows too long for the cluster's chip memory have."""
+    slice_len, smem_points, slices = fps.cluster_split(n, shared)
+    assert len(slices) == fps.CLUSTER and slice_len * fps.CLUSTER >= n
+    assert slices[0].start == 0 and slices[-1].stop == n
+    assert all(a.stop == b.start for a, b in zip(slices, slices[1:]))
+    on_regs = fps.REG_POINTS * fps.CLUSTER_THREADS
+    assert 0 <= smem_points and fps.ROW_BYTES * smem_points <= shared
+    for s in slices:
+        assert s.regs + s.shared + s.overflow == s.stop - s.start <= slice_len
+        assert s.regs == min(s.stop - s.start, on_regs) and s.shared <= smem_points
+        assert (s.overflow > 0) == (s.stop - s.start > on_regs + shared // fps.ROW_BYTES)
+    overflow = sum(s.overflow for s in slices)
+    if n == 1 << 19:  # the TPU wrapper's longest row spills
+        assert overflow > 0
+    else:
+        assert overflow == 0
+    if n == 102400:  # SA1 at the high-resolution config: all in registers
+        assert smem_points == 0 and all(s.regs == 6400 for s in slices)
 
 
 def test_knn_prepared_matches_knn(rng):
@@ -480,6 +513,200 @@ def test_fusion_variant_selection(rng):
     assert knn_resident.tiles(8192) == (64, 1024) and knn_gated.tiles(8192, 57600) == (256, 2048, False)
     assert knn_gated.tiles(102400, 1228800) == (256, 8192, True)
     assert ops.launch_counts()["knn_gated"] == 0 and ops.launch_counts()["knn_resident"] == 0
+
+
+# ---------------------------------------------------------------------------
+# Row 1: the demand-gated fusion kNN (csrc/knn_fusion.cu, knn_fusion_demand)
+# ---------------------------------------------------------------------------
+
+INT_MAX = 2**31 - 1
+
+
+def _demand_emulation(queries, refs, k, tile_m, tile_n, sub_gate, query_box=True):
+    """Row 1's demand mode in plain PyTorch: the kernel's prep, visit order,
+    gates (a tile is scanned unless its bound exceeds the block's worst k-th
+    distance over its real rows; the first closed gate ends the loop; with
+    ``sub_gate`` each 8-row group also skips a tile whose box bound exceeds
+    its own worst) and lists ordered by (distance, original index). Returns
+    (d, i) in the original query order and the (row, ref) pairs scanned."""
+    B, M, _ = queries.shape
+    q = queries.float()
+    box = (q.amin(1, keepdim=True), q.amax(1, keepdim=True)) if query_box else (None, None)
+    p = morton.prepare_refs(refs, tile_n, *box)
+    q_sorted, q_order, order, lb = morton.prepare_queries(queries, p, tile_m)
+    N, N_pad, M_pad = p.n, p.r4.shape[1], q_sorted.shape[1]
+    Nt, Mt, G = N_pad // tile_n, M_pad // tile_m, tile_m // morton.SUB
+    r_xyz, r_idx = p.r4[..., :3], p.r4[..., 3].view(torch.int32).long()
+    qt = q_sorted.reshape(B, Mt, tile_m, 3)
+    real = (torch.arange(M_pad) < M).reshape(1, Mt, tile_m)
+    inf = torch.tensor(float("inf"))
+    best_d = torch.full((B, Mt, tile_m, k), float("inf"))
+    best_i = torch.full((B, Mt, tile_m, k), INT_MAX, dtype=torch.long)
+    worst = torch.full((B, Mt), float("inf"))
+    running = torch.ones((B, Mt), dtype=torch.bool)
+    scanned = 0
+    for t in range(Nt):
+        running &= ~(lb[..., t] > worst)  # the first closed gate ends the loop
+        if not running.any():
+            break
+        cols = order[..., t].long()[..., None] * tile_n + torch.arange(tile_n)  # (B, Mt, tile_n)
+        rt = torch.gather(r_xyz, 1, cols.reshape(B, -1, 1).expand(-1, -1, 3)).reshape(B, Mt, tile_n, 3)
+        it = torch.gather(r_idx, 1, cols.reshape(B, -1)).reshape(B, Mt, 1, tile_n)
+        scan = running[..., None, None] & (cols < N)[:, :, None, :]  # padding is never a candidate
+        if sub_gate:
+            qg = qt.reshape(B, Mt, G, morton.SUB, 3)
+            rg = real.reshape(1, Mt, G, morton.SUB, 1)
+            glo = torch.where(rg, qg, inf).amin(3).reshape(-1, 1, 3)
+            ghi = torch.where(rg, qg, -inf).amax(3).reshape(-1, 1, 3)
+            tb = torch.gather(p.boxes, 1, order[..., t].long()[..., None].expand(-1, -1, 12))
+            tb = tb[:, :, None, :].expand(-1, -1, G, -1).reshape(-1, 1, 12)  # each group's tile
+            lb_sub = torch.minimum(
+                morton.box_sqdist(glo, ghi, tb[..., 0:3], tb[..., 3:6]), morton.box_sqdist(glo, ghi, tb[..., 6:9], tb[..., 9:12])
+            ).reshape(B, Mt, G)
+            kth = torch.where(real, best_d[..., k - 1], -inf).reshape(B, Mt, G, morton.SUB).amax(-1)
+            group_scan = ~(lb_sub > kth)
+            scan = scan & group_scan.repeat_interleave(morton.SUB, dim=2)[..., None]
+        scanned += int(scan.expand(-1, -1, tile_m, -1).sum())
+        d = reference.sqdist(qt, rt)  # (B, Mt, tile_m, tile_n)
+        cand_d = torch.cat([best_d, torch.where(scan, d, inf)], -1)
+        cand_i = torch.cat([best_i, torch.where(scan, it.expand_as(d), INT_MAX)], -1)
+        by_i = torch.argsort(cand_i, dim=-1, stable=True)  # (distance, index) order: index, then a stable sort by distance
+        cand_d, cand_i = torch.gather(cand_d, -1, by_i), torch.gather(cand_i, -1, by_i)
+        by_d = torch.argsort(cand_d, dim=-1, stable=True)[..., :k]
+        best_d, best_i = torch.gather(cand_d, -1, by_d), torch.gather(cand_i, -1, by_d)
+        worst = torch.where(running, torch.where(real, best_d[..., k - 1], -inf).amax(-1), worst)
+    inv = morton.inverse_perm(q_order)[..., None].expand(-1, -1, k)
+    d = torch.gather(best_d.reshape(B, M_pad, k)[:, :M], 1, inv)
+    i = torch.gather(best_i.reshape(B, M_pad, k)[:, :M], 1, inv).to(torch.int32)
+    return d, i, scanned
+
+
+def _demand_case(rng, case):
+    """(queries, refs) of a room-like cloud: points on the faces of a 4 m
+    box, the queries near them."""
+
+    def faces(n):
+        p = rng.uniform(0, 4, size=(2, n, 3)).astype(np.float32)
+        face = rng.integers(0, 3, size=(2, n))
+        np.put_along_axis(p, face[..., None], rng.integers(0, 2, size=(2, n, 1)) * 4.0, axis=-1)
+        return p
+
+    q = faces(100) + rng.normal(0, 0.02, size=(2, 100, 3)).astype(np.float32)
+    r = faces(1000)
+    if case == "duplicates":  # exact ties: the lower index wins
+        r[:, 500:] = r[:, :500]
+        q[:, :20] = r[:, 600:620]
+    elif case == "sentinels":
+        r[:, 300:450] = 1e6  # a block of invalid pixels
+        r[:, ::7] = 1e6  # and scattered ones
+    elif case == "fewer_than_k":  # row 0 has 2 real refs: the rest tie at 1e6 / 1e9
+        r[0] = 1e6
+        r[0, 1::5] = reference.MASK_COORD
+        r[0, [17, 900]] = q[0, :2]
+    elif case == "masked":
+        r[:, rng.uniform(size=1000) < 0.4] = reference.MASK_COORD  # ops.knn's ref_mask fill
+    return q, r
+
+
+@pytest.mark.parametrize("case", ["continuous", "duplicates", "sentinels", "fewer_than_k", "masked"])
+@pytest.mark.parametrize("sub_gate", [False, True], ids=["tile_gate", "sub_gate"])
+@pytest.mark.parametrize("query_box", [True, False], ids=["knn", "knn_prepared"])
+def test_demand_gate_emulation_matches_plain(rng, case, sub_gate, query_box):
+    """Row 1's gate with the (distance, index) order and lb > worst equals
+    the plain version (reference.knn) exactly, index ties included, on
+    small tiles that make it walk many (16 rows x 64 refs); and it skips
+    work on continuous data."""
+    q, r = _demand_case(rng, case)
+    k = 3
+    want_d, want_i = reference.knn(_t(q), _t(r), k)
+    got_d, got_i, scanned = _demand_emulation(_t(q), _t(r), k, 16, 64, sub_gate, query_box)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+    if case == "continuous":
+        assert scanned < 0.9 * 2 * 112 * 1000
+    if case == "fewer_than_k":
+        assert got_i[0, :, :2].sort(-1).values.tolist() == [[17, 900]] * 100
+        assert (got_i[0, :, 2] == 0).all()  # the lowest-index sentinel at 1e6
+
+
+def _lattice_case(rng, case):
+    if case == "random":
+        return _pts(rng, 2, 200), np.concatenate([_pts(rng, 2, 900), np.full((2, 100, 3), 1e6, np.float32)], 1)
+    # points on a 0.25 m lattice: many lie on the faces of the tile boxes,
+    # where the bound equals a distance exactly
+    q = rng.integers(-8, 8, size=(2, 200, 3)).astype(np.float32) * 0.25
+    r = rng.integers(-8, 8, size=(2, 1000, 3)).astype(np.float32) * 0.25
+    r[:, ::9] = reference.MASK_COORD
+    return q, r
+
+
+@pytest.mark.parametrize("case", ["random", "lattice"])
+@pytest.mark.parametrize("query_box", [True, False], ids=["query_box", "ref_box"])
+def test_demand_bounds_hold_for_every_pair(rng, case, query_box):
+    """lb <= d in f32 for every (real query, ref) pair of a (query tile, ref
+    tile): the visit list's bounds and the 8-row sub-gate's, sentinel refs
+    included, on random and lattice geometry."""
+    q, r = _lattice_case(rng, case)
+    tile_m, tile_n = 16, 64
+    tq, tr = _t(q), _t(r)
+    box = (tq.amin(1, keepdim=True), tq.amax(1, keepdim=True)) if query_box else (None, None)
+    p = morton.prepare_refs(tr, tile_n, *box)
+    q_sorted, _, order, lb = morton.prepare_queries(tq, p, tile_m)
+    B, M_pad, N_pad, N, M = 2, q_sorted.shape[1], p.r4.shape[1], r.shape[1], q.shape[1]
+    Mt, Nt = M_pad // tile_m, N_pad // tile_n
+    d = reference.sqdist(q_sorted, p.r4[..., :3])  # (B, M_pad, N_pad)
+    d[:, M:] = float("inf")
+    d[:, :, N:] = float("inf")
+    tile_min = d.reshape(B, Mt, tile_m, Nt, tile_n).amin(dim=(2, 4))  # (B, Mt, Nt)
+    assert (lb <= torch.gather(tile_min, 2, order.long())).all()
+    assert (lb == torch.gather(tile_min, 2, order.long())).any() or case == "random"
+    # the sub-gate: each 8-row group's box against both boxes of each tile
+    G = M_pad // morton.SUB
+    real = (torch.arange(M_pad) < M).reshape(1, G, morton.SUB, 1)
+    qg = q_sorted.reshape(B, G, morton.SUB, 3)
+    glo = torch.where(real, qg, float("inf")).amin(2)
+    ghi = torch.where(real, qg, float("-inf")).amax(2)
+    b = p.boxes
+    lb_sub = torch.minimum(morton.box_sqdist(glo, ghi, b[..., 0:3], b[..., 3:6]), morton.box_sqdist(glo, ghi, b[..., 6:9], b[..., 9:12]))
+    group_min = d.reshape(B, G, morton.SUB, Nt, tile_n).amin(dim=(2, 4))
+    assert (lb_sub <= group_min).all()
+
+
+@pytest.mark.parametrize("case", ["plain", "sentinel", "duplicates", "big_tiles"])
+def test_knn_prepare_matches_jax_prepare_refs(rng, case, monkeypatch):
+    """The prepared cloud (knn_bucketed.prepare, what ops.knn_prepare returns
+    on the card) equals JAX's prepare_refs: the stable Morton order by the
+    refs' real box (the original indices the 4th coordinate carries), the
+    sorted padded coordinates and the real tile boxes."""
+    q, r = _variant_case(rng, case if case != "big_tiles" else "sentinel")
+    if case == "big_tiles":  # 4096-ref tiles from BIG_N refs up, on both sides
+        monkeypatch.setattr(pgated, "_BIG_N", 512)
+        monkeypatch.setattr(morton, "BIG_N", 512)
+    want = pgated.prepare_refs(jnp.asarray(r))
+    got = knn_bucketed.prepare(_t(r))
+    assert (got.n, got.tile_n) == (want.n, want.tile_n) == (1000, 4096 if case == "big_tiles" else 2048)
+    index = got.r4[..., 3].view(torch.int32)
+    np.testing.assert_array_equal(index[:, : got.n].numpy(), np.asarray(want.r_order))
+    assert (index[:, got.n :] == -1).all()
+    np.testing.assert_array_equal(got.r4[..., :3].numpy(), np.swapaxes(np.asarray(want.rT4), 1, 2)[..., :3])
+    np.testing.assert_array_equal(got.boxes[..., 0:3].numpy(), np.asarray(want.rlo))
+    np.testing.assert_array_equal(got.boxes[..., 3:6].numpy(), np.asarray(want.rhi))
+
+
+@pytest.mark.parametrize(
+    "b,m,n,mode",
+    [(1, 8192, 96000, "brute"), (8, 8192, 57600, "brute"), (4, 102400, 1228800, "demand"), (1, 409600, 230400, "demand"),
+     (4, 8192, 153600, "demand"), (4, 16384, 153600, "demand"), (8, 32768, 57600, "demand"),
+     (2, 102400, 153600, "demand")],
+    ids=["chunk", "train", "scene", "scene_fused", "crossover_5e9", "scene_reduced", "train_32k_chunks", "train_highres"],
+)
+def test_fusion_mode_route(b, m, n, mode):
+    """The fusion kNN's mode on the port's paths and at the searches between
+    them: the smallest crossover shape of chip_smoke.py, the reduced-depth
+    scene check, and the train
+    microbatches of configs/scannet/mvpnet_3d_32k_chunks.yaml and
+    mvpnet_3d_highres_64view.yaml (the crossover is measured on the H100:
+    PERF.md)."""
+    assert knn_bucketed.route(b, m, n) == mode
 
 
 def _jax_knn_loss(q, r, k):
