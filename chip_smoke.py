@@ -13,9 +13,15 @@ Phases, each of which fails the run with a nonzero exit:
      (indices and counts equal, distances bit for bit); the fusion kNN (row
      1) in both its modes, demand-gated and brute, on every query, also with
      masked refs and rows with fewer than k real refs (ties to the lower
-     index); each kernel is timed with CUDA events beside its plain version,
-     a one-call PyTorch yardstick where one exists, and its bound (row 1's
-     from the pairs its route's mode scanned, the all-pairs bound beside it);
+     index); the block layouts of FPS (rows of 1 to the longest the block
+     kernel takes, npoint = N and > N, invalid rows, a batch of 8) and of
+     the ball query (blocks cut short, tile tails, all balls empty or full in
+     the first tile, K of 1 and 64); each kernel is timed with CUDA events
+     beside its plain version, a one-call PyTorch yardstick where one exists,
+     and its bound (row 1's from the pairs its route's mode scanned, the
+     all-pairs bound beside it); rows 2-4 at their first launch of the
+     forward, then at every launch (SA1-SA4, FP1-FP4), each held and timed,
+     under "levels" with their sum;
   4. slice: entry() at the default Config() (full width, bf16, B=1, N=8192,
      V=5 views of 120x160) answers 5 requests, each on a fresh numpy-seeded
      batch; every request must launch each kernel the expected number of
@@ -35,11 +41,12 @@ Phases, each of which fails the run with a nonzero exit:
        (b) each kernel against its plain version on this path's inputs: the
            per-row FPS (the cluster kernel) at the full SA1 shape, masked,
            with npoint > N, and on one 2^19-point row whose slices overflow
-           into device memory; the
-           shared-memory FPS at SA2, ball query at SA1 and three-NN at FP1
-           at full shape; the fusion kNN at full shape in both modes, held
+           into device memory; rows 2-4 at every level (the block FPS from
+           SA2); the fusion kNN at full shape in both modes, held
            on the first 256 queries of each row of the full run (its plain
-           version cannot run the full shape); each timed at the full shape;
+           version cannot run the full shape); each timed at the full shape,
+           and rows 1, 6 and 7 also on the 256 queries that the plain
+           version and torch.cdist take;
        (c) predict_scene through the kernels and with set_impl("reference")
            at the config's widths with data.num_points=16384 and
            data.num_views_eval=8 (SA1 rows of 16,384 points still take the
@@ -67,7 +74,8 @@ Phases, each of which fails the run with a nonzero exit:
            full shape, compared on the first 256 queries of each row, and
            with masked refs, duplicate points and a batch of 2; each timed
            beside the default fusion kernel (both modes) at that shape, and
-           FPS, ball query and three-NN (rows 2-4) at the step's shapes; row
+           FPS, ball query and three-NN (rows 2-4) at every level of the
+           step's forward; row
            6's 8-row subgroup gate is also checked and timed at the scene
            path's fusion shape in 5 (b);
        (c) the first step again from the same weights and batch with the
@@ -85,6 +93,7 @@ nonzero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -256,51 +265,129 @@ def kernel_phase(torch, cfg, batch) -> list[dict]:
         ("ball_query edges K=N", lambda: bq.ball_query(q37, p100[:, :40], 1.5, 40), lambda: reference.ball_query(q37, p100[:, :40], 1.5, 40)),
         ("ball_query edges K=64", lambda: bq.ball_query(q37, p100, 2.0, 64), lambda: reference.ball_query(q37, p100, 2.0, 64)),
     ]
+    checks += layout_edge_checks(torch, cfg, pts, rnd)
     for name, kern, plain in checks:
         same(torch, name, kern(), plain())
         print(f"  {name}: equal", flush=True)
 
     shape = f"{pts.shape[0]}x{pts.shape[1]} queries over {pix.shape[1]} refs, k={k}"
-    main = [fusion_case(torch, pts, pix, k, shape)] + path_cases(torch, cfg, pts)
-    return [measure(torch, case) for case in main]
+    return [measure(torch, fusion_case(torch, pts, pix, k, shape))] + list(path_rows(torch, cfg, pts).values())
 
 
-def path_cases(torch, cfg, pts) -> list[dict]:
-    """measure() cases of FPS, ball query and three-NN at a chunk path's
-    shapes (the chunk request's and the train step's): SA1 FPS, SA1 ball
-    query over its centers, the three-NN of every point over them."""
+def layout_edge_checks(torch, cfg, pts, rnd) -> list:
+    """(name, kernel, plain) checks of the block layouts of rows 2 and 3:
+    FPS rows of every register layout up to the longest row ``route`` sends
+    to the shared-memory kernel, with npoint = N and npoint > N, an
+    all-invalid row, masked leading points and a batch of 8; ball queries
+    whose blocks' centers end short of a whole block, points that end short
+    of a tile, balls all empty or all full in the first tile, K of 1 and 64."""
     from mvpnet_torch.models.pointnet2 import gather_points
     from mvpnet_torch.ops import KERNELS, reference
 
-    fps, bq, brute = (KERNELS[k] for k in ("fps", "ball_query", "knn"))
+    fps, bq = KERNELS["fps"], KERNELS["ball_query"]
     sa1 = cfg.model.pn2.sa[0]
-    c1 = gather_points(pts, fps.farthest_point_sample(pts, sa1.npoint))
-    B, M, Nc = pts.shape[0], pts.shape[1], c1.shape[1]
-    bq_idx, bq_cnt = reference.ball_query(c1, pts, sa1.radius, sa1.nsample)
-    # pairs the ball query's walk needs: up to its K-th hit, else every point
-    bq_pairs = torch.where(bq_cnt == sa1.nsample, bq_idx[..., -1].long() + 1, M).sum().item()
-    return [
-        dict(
-            name="fps", shape=f"{B}x{M} points -> {sa1.npoint}",
-            kern=lambda: fps.farthest_point_sample(pts, sa1.npoint),
-            plain=lambda: reference.farthest_point_sample(pts, sa1.npoint),
-            library=None,
-            ops=10.0 * B * (sa1.npoint - 1) * M, nbytes=4.0 * (3 * B * M + B * sa1.npoint),
-        ),
-        dict(
-            name="ball_query", shape=f"{B}x{Nc} centers over {M} points, r={sa1.radius}, K={sa1.nsample}",
-            kern=lambda: bq.ball_query(c1, pts, sa1.radius, sa1.nsample),
-            plain=lambda: reference.ball_query(c1, pts, sa1.radius, sa1.nsample),
-            library=lambda: torch.cdist(c1, pts),
-            ops=9.0 * bq_pairs, nbytes=4.0 * (3 * B * Nc + 3 * B * M + B * Nc * (sa1.nsample + 1)),
-        ),
-        dict(
-            name="knn", shape=f"{B}x{M} queries over {Nc} refs, k=3",
-            kern=lambda: brute.knn(pts, c1, 3), plain=lambda: reference.knn(pts, c1, 3),
-            library=lambda: torch.cdist(pts, c1),
-            ops=9.0 * B * M * Nc, nbytes=4.0 * (3 * B * M + 3 * B * Nc + 2 * B * M * 3),
-        ),
+    longest = fps.shared_bytes(pts.device) // fps.ROW_BYTES
+    checks = []
+    for n in (1, 31, 33, 100, 250, 1023, 1025, 8191, 8192, longest):
+        row = rnd(1, n, 3)
+        for npoint in (n, n + 3):
+            checks.append((f"fps layout N={n} npoint={npoint} ({fps.block_layout(n)})",
+                           lambda row=row, npoint=npoint: fps.farthest_point_sample(row, npoint),
+                           lambda row=row, npoint=npoint: reference.farthest_point_sample(row, npoint)))
+    rows8 = torch.cat([pts] * 8) + rnd(8, 1, 3)
+    valid = torch.zeros((2, 1025), dtype=torch.bool, device=pts.device)  # row 0: no valid point
+    valid[1, 700:] = True  # row 1: its first 700 points masked
+    two = rnd(2, 1025, 3)
+    checks += [
+        ("fps all-invalid row and masked leading points", lambda: fps.farthest_point_sample(two, 300, valid),
+         lambda: reference.farthest_point_sample(two, 300, valid)),
+        ("fps batch of 8", lambda: fps.farthest_point_sample(rows8, sa1.npoint),
+         lambda: reference.farthest_point_sample(rows8, sa1.npoint)),
     ]
+    c1 = gather_points(pts, fps.farthest_point_sample(pts, sa1.npoint))
+    M = 1000  # not a multiple of the block's centers at B=1
+    per_block = bq.centers_per_block(1, M, torch.cuda.get_device_properties(pts.device).multi_processor_count)
+    short = pts[:, : 5 * bq.TILE - 7].contiguous()  # ends inside a tile
+    mixed = c1.clone()
+    mixed[:, 1::2] += 50.0  # every other center far away: full balls beside empty ones in each block
+    checks += [
+        (f"ball_query B=1, {M} centers, {per_block} a block", lambda: bq.ball_query(c1[:, :M], pts, sa1.radius, sa1.nsample),
+         lambda: reference.ball_query(c1[:, :M], pts, sa1.radius, sa1.nsample)),
+        (f"ball_query {short.shape[1]} points (tile tail)", lambda: bq.ball_query(c1, short, 0.3, 64),
+         lambda: reference.ball_query(c1, short, 0.3, 64)),
+        ("ball_query all balls empty", lambda: bq.ball_query(c1[:, :M] + 50.0, short, sa1.radius, 1),
+         lambda: reference.ball_query(c1[:, :M] + 50.0, short, sa1.radius, 1)),
+        ("ball_query all balls full in the first tile K=64", lambda: bq.ball_query(c1, pts, 100.0, 64),
+         lambda: reference.ball_query(c1, pts, 100.0, 64)),
+        ("ball_query K=1", lambda: bq.ball_query(c1, pts, sa1.radius, 1),
+         lambda: reference.ball_query(c1, pts, sa1.radius, 1)),
+        ("ball_query full balls beside empty ones", lambda: bq.ball_query(mixed, pts, 1.0, 32),
+         lambda: reference.ball_query(mixed, pts, 1.0, 32)),
+    ]
+    return checks
+
+
+def level_cases(torch, cfg, pts) -> dict:
+    """measure() cases of rows 2-4 at every launch of one forward's
+    PointNet++ on ``pts`` (mvpnet_torch.profile_levels.levels: FPS and ball
+    query at SA1-SA4, the three-NN at FP1-FP4; FPS rows too long for the
+    block kernel, row 5's, are left out), with their bounds and library
+    calls. Returns {kernel: [case, ...]} in level order."""
+    from mvpnet_torch.ops import reference
+    from mvpnet_torch.profile_levels import levels
+
+    out = {"fps": [], "ball_query": [], "knn": []}
+    for lv in levels(cfg, pts):
+        if lv["kernel"] == "fps":
+            xyz, npoint = lv["args"]
+            B, N = xyz.shape[0], xyz.shape[1]
+            ops, nbytes, library = 10.0 * B * (npoint - 1) * N, 4.0 * (3 * B * N + B * npoint), None
+        elif lv["kernel"] == "ball_query":
+            new, xyz, radius, nsample = lv["args"]
+            B, M, N = new.shape[0], new.shape[1], xyz.shape[1]
+            idx, cnt = reference.ball_query(new, xyz, radius, nsample)
+            # pairs the search needs: each center up to its K-th hit, else every point
+            pairs = torch.where(cnt == nsample, idx[..., -1].long() + 1, N).sum().item()
+            ops, nbytes = 9.0 * pairs, 4.0 * (3 * B * M + 3 * B * N + B * M * (nsample + 1))
+            library = functools.partial(torch.cdist, new, xyz)
+        else:
+            d, s, k = lv["args"]
+            B, M, Ns = d.shape[0], d.shape[1], s.shape[1]
+            ops, nbytes = 9.0 * B * M * Ns, 4.0 * (3 * B * M + 3 * B * Ns + 2 * B * M * k)
+            library = functools.partial(torch.cdist, d, s)
+        out[lv["kernel"]].append(dict(
+            name=lv["kernel"], level=lv["level"], shape=lv["shape"], kern=lv["run"], plain=lv["plain"],
+            library=library, ops=ops, nbytes=nbytes, reps=10 if ops > 1e10 else KERNEL_REPS,
+        ))
+    return out
+
+
+def path_rows(torch, cfg, pts) -> dict:
+    """Rows 2-4 on one path (its input points ``pts``): each kernel's first
+    level through measure() (the row: held, timed beside its plain version,
+    library call and bound), then every level held and timed, under
+    ``levels``, with their sums ``sum_ms`` and ``sum_bound_ms`` (a forward's
+    time in the kernel and its bound). Returns {kernel: row}."""
+    rows = {}
+    for name, cases in level_cases(torch, cfg, pts).items():
+        first = cases[0]
+        row = measure(torch, dict(first, shape=f"{first['shape']} ({first['level']})"))
+        levels = []
+        for i, case in enumerate(cases):
+            if i == 0:
+                err, ms, b_ms, b_by = row["max_abs_err"], row["ms"], row["bound_ms"], row["bound_by"]
+            else:
+                err = same(torch, f"{name} {case['level']}", case["kern"](), case["plain"]())
+                ms = cuda_ms(torch, case["kern"], case["reps"])
+                b_ms, b_by = bound_ms(case["ops"], case["nbytes"])
+            levels.append(dict(level=case["level"], shape=case["shape"], ms=ms, bound_ms=b_ms, bound_by=b_by,
+                               max_abs_err=err))
+            print(f"  {name} {case['level']} [{case['shape']}]: equal; {ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})",
+                  flush=True)
+        row.update(levels=levels, sum_ms=sum(x["ms"] for x in levels),
+                   sum_bound_ms=sum(x["bound_ms"] for x in levels))
+        rows[name] = row
+    return rows
 
 
 def fusion_case(torch, q, r, k, shape, subset=None, prepared=None) -> dict:
@@ -350,6 +437,9 @@ def fusion_case(torch, q, r, k, shape, subset=None, prepared=None) -> dict:
         plain=lambda: reference.knn(q_sub, r, k),
         plain_shape=f"{B}x{rows} queries (the first of each row) of the full search",
         library=lambda: torch.cdist(q_sub, r),
+        # the kernel on the library call's queries alone, its like for like
+        subset_kern=(lambda: fusion.knn_prepared(q_sub, prepared, k)) if prepared is not None
+        else (lambda: fusion.knn(q_sub, r, k, mode=mode)),
         ops=9.0 * modes[mode]["scanned_pairs"], ops_all_pairs=9.0 * B * M * N,
         nbytes=4.0 * (3 * B * M + 3 * B * N + 2 * B * M * k),
         extra={"mode": mode, "modes": modes},
@@ -377,14 +467,16 @@ def measure(torch, case: dict) -> dict:
     }
     if "check" in case:
         row["plain_shape"] = case["plain_shape"]
-        if not case.get("rows_of_full_run"):  # else check is the full-shape run
-            row["ms_on_plain_shape"] = cuda_ms(torch, check, reps)
+        # the kernel on the plain version's inputs, which the library call takes too
+        on_plain = case["subset_kern"] if case.get("rows_of_full_run") else check
+        row["ms_on_plain_shape"] = cuda_ms(torch, on_plain, reps)
     if "ops_all_pairs" in case:  # a gated kernel: the bound counts the pairs its gate let through
         row["bound_ms_all_pairs"] = bound_ms(case["ops_all_pairs"], case["nbytes"])[0]
     row.update(case.get("extra", {}))
     print(f"  {case['name']} [{case['shape']}]: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain"
           f"{' [' + case['plain_shape'] + ']' if 'check' in case else ''}, "
-          f"library {lib_ms}, bound {b_ms:.6f} ms ({b_by})", flush=True)
+          f"library {lib_ms}{', kernel ' + format(row['ms_on_plain_shape'], '.4f') + ' ms on its inputs' if 'check' in case else ''}"
+          f", bound {b_ms:.6f} ms ({b_by})", flush=True)
     torch.cuda.empty_cache()
     return row
 
@@ -552,19 +644,17 @@ def scene_run(torch, evaluate, ops, whole_scene, scene, forwards: int, host_coun
 
 
 def scene_kernel_cases(torch, cfg, pts, pix):
-    """(b): the kernels against their plain versions on the scene path's
-    inputs: pts (4, 102400, 3) chunk points, pix (4, 1228800, 3) pixel refs."""
-    from mvpnet_torch.models.pointnet2 import gather_points
+    """(b): the per-row FPS against its plain version on the scene path's
+    inputs, masked, with npoint > N and on a row that overflows into device
+    memory; returns the measure() cases of rows 1 and 5 at the path's shapes.
+    pts (4, 102400, 3) chunk points, pix (4, 1228800, 3) pixel refs."""
     from mvpnet_torch.ops import KERNELS, reference
 
-    fps, bq, brute = (KERNELS[k] for k in ("fps", "ball_query", "knn"))
-    sa1, sa2 = cfg.model.pn2.sa[0], cfg.model.pn2.sa[1]
+    fps = KERNELS["fps"]
+    sa1 = cfg.model.pn2.sa[0]
     k = cfg.model.aggregation.k
     B, M, N = pts.shape[0], pts.shape[1], pix.shape[1]
     g = torch.Generator(device=pts.device).manual_seed(1)
-    idx1 = fps.farthest_point_sample(pts, sa1.npoint)  # SA1: the per-row kernel
-    c1 = gather_points(pts, idx1)
-    Nc = c1.shape[1]
     valid = torch.rand(pts.shape[:2], generator=g, device=pts.device) > 0.1
     valid[:, :3] = False  # the seed must move to the first valid point
     valid[-2, : M // 2] = False
@@ -584,38 +674,15 @@ def scene_kernel_cases(torch, cfg, pts, pix):
         same(torch, name, kern(), plain())
         print(f"  {name}: equal", flush=True)
     del longest
-    bq_idx, bq_cnt = reference.ball_query(c1, pts, sa1.radius, sa1.nsample)
-    bq_pairs = torch.where(bq_cnt == sa1.nsample, bq_idx[..., -1].long() + 1, M).sum().item()
-    del bq_idx, bq_cnt
-    return [
-        fusion_case(torch, pts, pix, k, f"{B}x{M} queries over {N} refs, k={k}", subset=FUSION_SUBSET),
-        dict(
-            name="fps", shape=f"{B}x{Nc} points -> {sa2.npoint} (SA2)",
-            kern=lambda: fps.farthest_point_sample(c1, sa2.npoint),
-            plain=lambda: reference.farthest_point_sample(c1, sa2.npoint), library=None,
-            ops=10.0 * B * (sa2.npoint - 1) * Nc, nbytes=4.0 * (3 * B * Nc + B * sa2.npoint),
-        ),
-        dict(
-            name="ball_query", shape=f"{B}x{Nc} centers over {M} points, r={sa1.radius}, K={sa1.nsample}", reps=10,
-            kern=lambda: bq.ball_query(c1, pts, sa1.radius, sa1.nsample),
-            plain=lambda: reference.ball_query(c1, pts, sa1.radius, sa1.nsample),
-            library=lambda: torch.cdist(c1, pts),
-            ops=9.0 * bq_pairs, nbytes=4.0 * (3 * B * Nc + 3 * B * M + B * Nc * (sa1.nsample + 1)),
-        ),
-        dict(
-            name="knn", shape=f"{B}x{M} queries over {Nc} refs, k=3 (FP1)", reps=10,
-            kern=lambda: brute.knn(pts, c1, 3), plain=lambda: reference.knn(pts, c1, 3),
-            library=lambda: torch.cdist(pts, c1),
-            ops=9.0 * B * M * Nc, nbytes=4.0 * (3 * B * M + 3 * B * Nc + 2 * B * M * 3),
-        ),
-        dict(
-            name="fps_perrow", shape=f"{B}x{M} points -> {sa1.npoint} (SA1)", reps=5,
-            kern=lambda: fps.farthest_point_sample(pts, sa1.npoint),
-            plain=lambda: reference.farthest_point_sample(pts, sa1.npoint), library=None,
-            ops=10.0 * B * (sa1.npoint - 1) * M, nbytes=4.0 * (3 * B * M + B * sa1.npoint),
-            extra={"cluster": fps.CLUSTER},
-        ),
-    ]
+    fusion = fusion_case(torch, pts, pix, k, f"{B}x{M} queries over {N} refs, k={k}", subset=FUSION_SUBSET)
+    perrow = dict(
+        name="fps_perrow", shape=f"{B}x{M} points -> {sa1.npoint} (SA1)", reps=5,
+        kern=lambda: fps.farthest_point_sample(pts, sa1.npoint),
+        plain=lambda: reference.farthest_point_sample(pts, sa1.npoint), library=None,
+        ops=10.0 * B * (sa1.npoint - 1) * M, nbytes=4.0 * (3 * B * M + B * sa1.npoint),
+        extra={"cluster": fps.CLUSTER},
+    )
+    return fusion, perrow
 
 
 def scanned_ops(torch, mod, q, r, k) -> float:
@@ -643,6 +710,7 @@ def gated_case(torch, name, q, r, k, shape, reps=KERNEL_REPS) -> dict:
         plain=lambda: mod.plain(q, r, k, rows=rows),
         plain_shape=f"{B}x{FUSION_SUBSET} queries (the first of each row) of the full search",
         library=lambda: torch.cdist(q[:, :FUSION_SUBSET], r),
+        subset_kern=lambda: mod.knn(q[:, :FUSION_SUBSET].contiguous(), r, k),
         ops=scanned_ops(torch, mod, q, r, k), ops_all_pairs=9.0 * B * M * N,
         nbytes=4.0 * (3 * B * M + 3 * B * N + 2 * B * M * k),
     )
@@ -695,7 +763,8 @@ def scene_phase(torch, evaluate, model, cfg):
     # (b) kernels against their plain versions on this path's inputs
     with torch.no_grad():
         pts, pix = scene_fusion_inputs(torch, cfg, scene)
-        rows = [measure(torch, case) for case in scene_kernel_cases(torch, cfg, pts, pix)]
+        fusion, perrow = scene_kernel_cases(torch, cfg, pts, pix)
+        rows = [measure(torch, fusion), *path_rows(torch, cfg, pts).values(), measure(torch, perrow)]
         # row 6's subgroup-gated body: refs >= 2^18 take tiles of 8192
         k = cfg.model.aggregation.k
         subgate = measure(torch, gated_case(
@@ -1040,9 +1109,7 @@ def train_kernel_rows(torch, cfg, batch) -> dict:
         shape = f"{B}x{M} queries over {N} refs, k={k}"
         out = {name: measure(torch, gated_case(torch, name, pts, pix, k, shape)) for name in ("knn_gated", "knn_resident")}
         out["knn_fusion"] = measure(torch, fusion_case(torch, pts, pix, k, shape, subset=FUSION_SUBSET))
-        # rows 2-4 at the train step's shapes
-        for case in path_cases(torch, cfg, pts):
-            out[case["name"]] = measure(torch, case)
+        out.update(path_rows(torch, cfg, pts))  # rows 2-4 at the train step's shapes
     return out
 
 

@@ -2,10 +2,10 @@
 //
 // Replaces the Pallas kernels of mvpnet_tpu/ops/pallas/fps.py:
 //   * `fps` (fps_shared_kernel): _fps_batched_kernel (pallas_call at
-//     fps.py:133), the row in one block's shared memory. On the chunk path
-//     it samples 8192 -> 1024 at SA1 and 1024 -> 256 at SA2; on the
-//     whole-scene path at the high-resolution config, 8192 -> 2048 at SA2
-//     and below.
+//     fps.py:133), the row in one block's registers and shared memory. On
+//     the chunk and train paths it samples SA1-SA4 (8192 -> 1024 at SA1); on
+//     the whole-scene path at the high-resolution config, SA2-SA4 (8192 ->
+//     2048 at SA2).
 //   * `fps_perrow` (fps_cluster_kernel): _fps_kernel (pallas_call at
 //     fps.py:174 in _fps_perrow), which keeps a whole long row in VMEM. On
 //     the whole-scene path it samples 4 x 102,400 -> 8192 at SA1.
@@ -20,10 +20,43 @@
 // ties; invalid points start at -inf and so are never selected while a valid
 // point remains.
 //
-// fps_shared_kernel: one block per batch row, up to 1024 threads, the row as
-// float4 (x, y, z, dist) in dynamic shared memory (128 KB at N = 8192); each
-// step is a strided update, then a warp-shuffle argmax with the tie rule
-// (d > bd) || (d == bd && i < bi) and a second pass over the warps' winners.
+// fps_shared_kernel: one block per batch row. Thread t keeps the points
+// j = q * T + t (q < P, j < P * T) in registers as (x, y, z, dist), the
+// rest of a long row's distances in dynamic shared memory, which holds the
+// whole row as float4 (x, y, z, dist): every warp reads the winner's
+// coordinates from there with one broadcast load. That load is kept on
+// purpose: carrying the coordinates with the winner through the slots, as
+// fps_cluster_kernel does, needs the winning lane to pick its point out of
+// its P registers (a select chain of P, or three more selects a point in the
+// update), more work a step than one broadcast load, and the shared row is
+// what holds route's boundary at 16 bytes a point. P (points a thread, a
+// template argument, at most kBlockPoints) and T (threads, at most
+// kBlockThreads) come from the wrapper (ops/fps.py::block_layout): 16 a
+// thread at 512 threads for N = 8192; a point a thread up to 256 threads for
+// rows that 256 threads hold at 16 a thread (faster there than fewer, longer
+// threads). A thread visits its points in ascending index order. Each step:
+//   1. update the thread's distances and keep its best (d, i);
+//   2. the warp's argmax under the tie rule (d > bd) || (d == bd && i < bi),
+//      in two redux.sync reductions (warp_argmax); lane 0 writes it to slot
+//      [step parity][warp] in shared memory;
+//   3. one __syncthreads();
+//   4. every warp reduces the slots itself, in one order, so every thread
+//      knows the next point: no broadcast, no second barrier. A warp writes
+//      slots [s & 1] again at step s + 2, after the barrier of step s + 1,
+//      which every reader of step s has passed.
+//   5. thread 0 writes out[step].
+//
+// Bound on the H100: the npoint - 1 steps are sequential, and one step of a
+// block is an update of N points (about 12 instructions a point: 8192
+// points are ~3,100 warp instructions over one SM's 4 schedulers, some 770
+// cycles), two pairs of warp reductions and one barrier. On an H100 80GB
+// HBM3 at 700 W a step over 8192 points takes about 0.77 us of device time
+// (8192 -> 1024: 0.787-0.794 ms at 512 threads x 16 points; 0.96-0.97 ms
+// with CUDA events at 1024 x 8, which was dropped; 1.40-1.41 ms for the
+// former kernel, one shared-memory row, a butterfly argmax and two barriers
+// a step; PERF.md). The card's bytes and operations (10 f32 operations a
+// point and step) are far below it; chip_smoke.py computes both from the
+// run.
 //
 // fps_cluster_kernel: one thread-block cluster of C = 16 CTAs (a
 // non-portable cluster size; 8 took longer, PERF.md) per batch row, 512
@@ -55,10 +88,11 @@
 // of 132 SMs working. Here a step reads only on-chip memory (at C = 16 and
 // N = 102,400: 6400 points a CTA, all in registers), so what bounds it is the
 // latency of the step: the update of a slice, a block reduction, one cluster
-// barrier. On an H100 80GB HBM3 at 700 W that is about 2.5 us a step (20.6
-// ms at that shape; 24.7 ms on clusters of 8; PERF.md). The first version of this
-// kernel, 1024 threads a CTA reading the C winners from the other CTAs after
-// the barrier, took 32 ms on 8 CTAs and 47 ms on 16: the step's
+// barrier. On an H100 80GB HBM3 at 700 W that is about 2.0 us a step (16.4
+// ms at that shape with warp_argmax's redux.sync reductions; 20.6 ms with
+// butterfly shuffles, 24.7 ms on clusters of 8; PERF.md). The first version
+// of this kernel, 1024 threads a CTA reading the C winners from the other
+// CTAs after the barrier, took 32 ms on 8 CTAs and 47 ms on 16: the step's
 // synchronization, not its arithmetic, sets the pace. Neither the card's
 // bytes nor its operations (10 f32 operations a point and step, 0.50 ms at
 // that shape) come near; chip_smoke.py computes both from the run.
@@ -70,7 +104,11 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
+// fps_shared_kernel: the most threads a block takes and the most points a
+// thread keeps in registers; mirrored by mvpnet_torch/ops/fps.py
+// (BLOCK_THREADS, BLOCK_POINTS), whose block_layout picks the layout
+constexpr int kBlockThreads = 512;
+constexpr int kBlockPoints = 16;
 // fps_cluster_kernel: CTAs a cluster, threads a CTA and points a thread
 // keeps in registers; mirrored by mvpnet_torch/ops/fps.py (CLUSTER,
 // CLUSTER_THREADS, REG_POINTS)
@@ -83,112 +121,126 @@ struct ArgMax {
   int i;
 };
 
-__device__ __forceinline__ ArgMax better(ArgMax a, ArgMax b) {
-  return (b.d > a.d || (b.d == a.d && b.i < a.i)) ? b : a;
+// The warp's best (d, i) under the tie rule (d > bd) || (d == bd && i < bi),
+// to every lane, in two warp reductions (redux.sync): the largest distance
+// as an order-preserving key (distances are >= 0, or -inf for invalid
+// points, which keys below all of them), then the least index among the
+// lanes that hold it.
+__device__ __forceinline__ ArgMax warp_argmax(ArgMax v) {
+  const unsigned key = v.d < 0.f ? 0u : __float_as_uint(v.d) + 1u;
+  const unsigned top = __reduce_max_sync(MVP_FULL_MASK, key);
+  const int i = __reduce_min_sync(MVP_FULL_MASK, key == top ? v.i : INT_MAX);
+  return ArgMax{top == 0u ? -__int_as_float(0x7f800000) : __uint_as_float(top - 1u), i};
 }
 
-// The best (d, i) over lanes that are W apart or less (W a power of two),
-// to every one of them (butterfly: the tie rule is a total order).
-template <int W>
-__device__ __forceinline__ ArgMax group_argmax(ArgMax v) {
-#pragma unroll
-  for (int off = W / 2; off > 0; off >>= 1) {
-    ArgMax o;
-    o.d = __shfl_xor_sync(MVP_FULL_MASK, v.d, off);
-    o.i = __shfl_xor_sync(MVP_FULL_MASK, v.i, off);
-    v = better(v, o);
-  }
-  return v;
-}
-
-// Block-wide argmax; thread 0 gets the winner. `red` holds one entry a warp.
-__device__ __forceinline__ ArgMax block_argmax(ArgMax v, ArgMax* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  v = group_argmax<32>(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const float ninf = -__int_as_float(0x7f800000);
-    v = group_argmax<32>(lane < nwarps ? red[lane] : ArgMax{ninf, INT_MAX});
-  }
-  return v;
-}
-
-__global__ void fps_shared_kernel(const float* __restrict__ pts,
-                                  const uint8_t* __restrict__ mask, int N,
-                                  int npoint, int* __restrict__ out) {
-  extern __shared__ float4 row[];
-  __shared__ ArgMax red[kMaxThreads / 32];
-  __shared__ int s_last;
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float* p = pts + 3 * (size_t)b * N;
-  const uint8_t* mk = mask ? mask + (size_t)b * N : nullptr;
-  int* o = out + (size_t)b * npoint;
-  const float inf = __int_as_float(0x7f800000);
-
-  // init: dist +inf for valid points, -inf for invalid; seed = first valid
-  int first = INT_MAX;
-  for (int i = tid; i < N; i += blockDim.x) {
-    const bool valid = mk == nullptr || mk[i] != 0;
-    row[i] = make_float4(p[3 * i], p[3 * i + 1], p[3 * i + 2], valid ? inf : -inf);
-    if (valid && i < first) first = i;
-  }
-  // block min of `first` through the same argmax machinery (lower index wins)
-  ArgMax f = block_argmax(ArgMax{first == INT_MAX ? -inf : 0.f, first}, red);
-  if (tid == 0) {
-    s_last = f.i == INT_MAX ? 0 : f.i;
-    o[0] = s_last;
-  }
-  __syncthreads();
-  int last = s_last;
-
-  for (int step = 1; step < npoint; ++step) {
-    const float4 l = row[last];
-    ArgMax best{-inf, INT_MAX};
-    for (int i = tid; i < N; i += blockDim.x) {
-      const float4 v = row[i];
-      const float nd = fminf(v.w, mvp_sqdist(v.x, v.y, v.z, l.x, l.y, l.z));
-      if (nd < v.w) row[i].w = nd;
-      best = better(best, ArgMax{nd, i});
-    }
-    best = block_argmax(best, red);
-    if (tid == 0) {
-      s_last = best.i;
-      o[step] = best.i;
-    }
-    __syncthreads();
-    last = s_last;
-  }
-}
-
-// The winner of a warp, a CTA or the cluster: (d, i) and the point's
-// coordinates.
+// The winner of a CTA or the cluster in fps_cluster_kernel: (d, i) and the
+// point's coordinates.
 struct __align__(16) Cand {
   float d;
   int i;
   float x, y, z;
 };
 
+// The best of the candidates c[0, n) (n <= 32), to every lane of the warp.
+__device__ __forceinline__ Cand best_of(const Cand* c, int n) {
+  const int lane = threadIdx.x & 31;
+  const Cand m = lane < n ? c[lane] : Cand{-__int_as_float(0x7f800000), INT_MAX, 0.f, 0.f, 0.f};
+  const ArgMax b = warp_argmax(ArgMax{m.d, m.i});
+  // every lane takes the coordinates from the lane that read the winner
+  const int src = __ffs(__ballot_sync(MVP_FULL_MASK, lane < n && m.i == b.i)) - 1;
+  return Cand{b.d, b.i, __shfl_sync(MVP_FULL_MASK, m.x, src), __shfl_sync(MVP_FULL_MASK, m.y, src),
+              __shfl_sync(MVP_FULL_MASK, m.z, src)};
+}
+
+template <int P>
+__global__ void __launch_bounds__(kBlockThreads)
+fps_shared_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask, int N,
+                  int npoint, int* __restrict__ out) {
+  extern __shared__ float4 row[];  // the whole row: (x, y, z, dist)
+  __shared__ ArgMax slots[2][kBlockThreads / 32];  // each warp's winner, by step parity
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int T = blockDim.x;
+  const int warp = tid >> 5;
+  const int nwarps = T >> 5;
+  const float* p = pts + 3 * (size_t)b * N;
+  const uint8_t* mk = mask ? mask + (size_t)b * N : nullptr;
+  const float inf = __int_as_float(0x7f800000);
+  const ArgMax none{-inf, INT_MAX};
+  // points j < n_reg live in registers (j = q * T + tid; past n_reg at dist
+  // -inf, never a winner), the rest's distances in row[j].w; a thread
+  // visits its points in ascending index order
+  const int n_reg = min(N, P * T);
+
+  float4 rp[P];
+  // init: dist +inf for valid points, -inf for invalid; the seed is the
+  // first valid point: each thread's candidate is its first valid one at 0
+  ArgMax best = none;
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int j = q * T + tid;
+    rp[q] = make_float4(0.f, 0.f, 0.f, -inf);
+    if (j < n_reg) {
+      const bool valid = mk == nullptr || mk[j] != 0;
+      rp[q] = make_float4(p[3 * j], p[3 * j + 1], p[3 * j + 2], valid ? inf : -inf);
+      row[j] = rp[q];
+      if (valid && best.i == INT_MAX) best = ArgMax{0.f, j};
+    }
+  }
+  for (int j = n_reg + tid; j < N; j += T) {
+    const bool valid = mk == nullptr || mk[j] != 0;
+    row[j] = make_float4(p[3 * j], p[3 * j + 1], p[3 * j + 2], valid ? inf : -inf);
+    if (valid && best.i == INT_MAX) best = ArgMax{0.f, j};
+  }
+  int* o = out + (size_t)b * npoint;
+  int last = 0;  // the step's winner; with no valid point left, index 0
+  for (int step = 0; step < npoint; ++step) {
+    if (step > 0) {
+      const float4 l = row[last];  // a broadcast read: the winner's coordinates
+      // ascending indices: a later point wins only on a larger distance;
+      // invalid points stay at -inf and never win
+      best = none;
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const float nd = fminf(rp[q].w, mvp_sqdist(rp[q].x, rp[q].y, rp[q].z, l.x, l.y, l.z));
+        rp[q].w = nd;
+        if (nd > best.d) best = ArgMax{nd, q * T + tid};
+      }
+      for (int j = n_reg + tid; j < N; j += T) {
+        const float4 v = row[j];
+        const float nd = fminf(v.w, mvp_sqdist(v.x, v.y, v.z, l.x, l.y, l.z));
+        if (nd < v.w) row[j].w = nd;
+        if (nd > best.d) best = ArgMax{nd, j};
+      }
+    }
+    const ArgMax w = warp_argmax(best);
+    if (lane == 0) slots[step & 1][warp] = w;
+    __syncthreads();
+    // every warp reduces the slots itself: slots [s & 1] are written again
+    // at step s + 2, after the barrier of step s + 1, which every reader of
+    // step s has passed
+    last = warp_argmax(lane < nwarps ? slots[step & 1][lane] : none).i;
+    if (last == INT_MAX) last = 0;
+    if (tid == 0) o[step] = last;
+  }
+}
+
 // The cluster's winner of this step, to every thread, from each thread's
 // best (d, i) and the coordinates of its point `xyz` (read by the lane that
-// owns the warp's winner only): a warp and a block reduction; warp 0 pushes
-// the CTA's winner into slot [parity][rank] of every CTA of the cluster
-// through distributed shared memory; one cluster barrier; then each warp
-// reduces the kCluster slots in its own shared memory.
+// owns the warp's winner only): the warps' winners; warp 0 reduces them and
+// pushes the CTA's winner into slot [parity][rank] of every CTA of the
+// cluster through distributed shared memory; one cluster barrier; then each
+// warp reduces the kCluster slots in its own shared memory.
 template <typename Coords>
 __device__ __forceinline__ Cand cluster_best(cg::cluster_group& cluster, ArgMax v, Coords xyz,
                                              Cand* red, Cand (*slots)[kCluster], int step) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const float ninf = -__int_as_float(0x7f800000);
-  const Cand none{ninf, INT_MAX, 0.f, 0.f, 0.f};
-  const ArgMax w = group_argmax<32>(v);
+  const ArgMax w = warp_argmax(v);
   if (w.i == INT_MAX) {
-    if (lane == 0) red[warp] = none;  // a warp without points
+    if (lane == 0) red[warp] = Cand{w.d, INT_MAX, 0.f, 0.f, 0.f};  // a warp without points
   } else if (v.i == w.i) {
     float x, y, z;
     xyz(x, y, z);
@@ -196,23 +248,12 @@ __device__ __forceinline__ Cand cluster_best(cg::cluster_group& cluster, ArgMax 
   }
   __syncthreads();
   Cand* slot = slots[step & 1];
-  if (warp == 0) {
-    const Cand c = lane < (int)(blockDim.x >> 5) ? red[lane] : none;
-    const ArgMax b = group_argmax<32>(ArgMax{c.d, c.i});
-    const int src = __ffs(__ballot_sync(MVP_FULL_MASK, c.i == b.i)) - 1;
-    const Cand win{b.d, b.i, __shfl_sync(MVP_FULL_MASK, c.x, src), __shfl_sync(MVP_FULL_MASK, c.y, src),
-                   __shfl_sync(MVP_FULL_MASK, c.z, src)};
+  if (threadIdx.x < 32) {
+    const Cand win = best_of(red, blockDim.x >> 5);
     if (lane < kCluster) *cluster.map_shared_rank(slot + cluster.block_rank(), lane) = win;
   }
   cluster.sync();
-  const Cand c = lane < kCluster ? slot[lane] : none;
-  const ArgMax b = group_argmax<kCluster>(ArgMax{c.d, c.i});
-  // lanes 0..kCluster-1 hold the winner; every lane takes it from the one
-  // that read it
-  const int src = __ffs(__ballot_sync(MVP_FULL_MASK, lane < kCluster && c.i == b.i)) - 1;
-  return Cand{__shfl_sync(MVP_FULL_MASK, c.d, src), __shfl_sync(MVP_FULL_MASK, c.i, src),
-              __shfl_sync(MVP_FULL_MASK, c.x, src), __shfl_sync(MVP_FULL_MASK, c.y, src),
-              __shfl_sync(MVP_FULL_MASK, c.z, src)};
+  return best_of(slot, kCluster);
 }
 
 __global__ void __launch_bounds__(kClusterThreads, 1)
@@ -319,9 +360,18 @@ fps_cluster_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ ma
   cluster.sync();  // no CTA leaves while another may still write its slots
 }
 
-int block_threads(int N) {
-  const int threads = ((N + 31) / 32) * 32;
-  return threads > kMaxThreads ? kMaxThreads : threads;
+using SharedKernel = void (*)(const float*, const uint8_t*, int, int, int*);
+
+// fps_shared_kernel for P points a thread in registers, or null
+SharedKernel shared_kernel(int P) {
+  switch (P) {
+    case 1: return fps_shared_kernel<1>;
+    case 2: return fps_shared_kernel<2>;
+    case 4: return fps_shared_kernel<4>;
+    case 8: return fps_shared_kernel<8>;
+    case 16: return fps_shared_kernel<16>;
+    default: return nullptr;
+  }
 }
 
 cudaError_t optin_bytes(int* bytes) {
@@ -342,7 +392,7 @@ extern "C" int fps_shared_bytes(int* bytes) {
   cudaError_t e = optin_bytes(&optin);
   if (e != cudaSuccess) return e;
   cudaFuncAttributes a, c;
-  e = cudaFuncGetAttributes(&a, fps_shared_kernel);
+  e = cudaFuncGetAttributes(&a, fps_shared_kernel<kBlockPoints>);
   if (e != cudaSuccess) return e;
   e = cudaFuncGetAttributes(&c, fps_cluster_kernel);
   if (e != cudaSuccess) return e;
@@ -352,24 +402,25 @@ extern "C" int fps_shared_bytes(int* bytes) {
 }
 
 // pts (B, N, 3) f32 contiguous; mask (B, N) uint8 or null; out (B, npoint)
-// int32. The row must fit in shared memory (see fps_shared_bytes), else
-// cudaErrorInvalidValue. Returns cudaError_t.
-extern "C" int fps(const float* pts, const uint8_t* mask, int B, int N,
-                   int npoint, int* out, void* stream) {
+// int32. One block of `threads` threads a row (a multiple of 32, at most
+// kBlockThreads), each keeping `reg_points` (1, 2, 4, 8 or 16) points in
+// registers (ops/fps.py::block_layout). The row must fit in shared memory
+// (see fps_shared_bytes), else cudaErrorInvalidValue. Returns cudaError_t.
+extern "C" int fps(const float* pts, const uint8_t* mask, int B, int N, int npoint,
+                   int reg_points, int threads, int* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || npoint <= 0) return cudaSuccess;
-  if (N <= 0) return cudaErrorInvalidValue;
+  const SharedKernel kernel = shared_kernel(reg_points);
+  if (N <= 0 || kernel == nullptr || threads < 32 || threads % 32 != 0 || threads > kBlockThreads)
+    return cudaErrorInvalidValue;
   int avail = 0;
   cudaError_t e = static_cast<cudaError_t>(fps_shared_bytes(&avail));
   if (e != cudaSuccess) return e;
   const size_t bytes = sizeof(float4) * (size_t)N;
   if (bytes > (size_t)avail) return cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(fps_shared_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)bytes);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
-  fps_shared_kernel<<<B, block_threads(N), bytes, st>>>(pts, mask, N, npoint,
-                                                        out);
+  kernel<<<B, threads, bytes, st>>>(pts, mask, N, npoint, out);
   return cudaGetLastError();
 }
 

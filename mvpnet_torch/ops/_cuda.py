@@ -122,11 +122,11 @@ _SIGNATURES = {
     ("knn_resident", "knn_resident"): (
         _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
     ),
-    ("fps", "fps"): (_PTR, _PTR, _INT, _INT, _INT, _PTR, _PTR),
+    ("fps", "fps"): (_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR),
     ("fps", "fps_perrow"): (_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR),
     ("fps", "fps_shared_bytes"): (_INT_OUT,),
     ("ballquery", "ball_query"): (
-        _PTR, _PTR, _INT, _INT, _INT, _FLOAT, _INT, _PTR, _PTR, _PTR,
+        _PTR, _PTR, _INT, _INT, _INT, _FLOAT, _INT, _INT, _PTR, _PTR, _PTR,
     ),
 }
 _functions: dict = {}

@@ -2,7 +2,8 @@
 
 Counterpart of ``mvpnet_tpu/ops/pallas/fps.py``, whose two Pallas kernels
 become two entry points of one source:
-  * ``fps``, the row in one block's shared memory (``_fps_batched_kernel``);
+  * ``fps``, the row in one block's registers and shared memory
+    (``_fps_batched_kernel``), laid out by ``block_layout``;
   * ``fps_perrow``, the row on a thread-block cluster (``_fps_kernel``), for
     rows too long for one block's shared memory (SA1 at the high-resolution
     config: 102,400 points). Each CTA of the cluster keeps a slice of the
@@ -25,6 +26,16 @@ from mvpnet_torch.ops import _cuda, reference
 
 # bytes a point takes in the kernels' rows: float4 (x, y, z, dist)
 ROW_BYTES = 16
+# fps_shared_kernel (csrc/fps.cu kBlockPoints, kBlockThreads): the most
+# points a thread keeps in registers (its template instances are the powers
+# of two up to it) and the most threads a block takes; and the most threads
+# a block takes for a row that they hold at BLOCK_POINTS a thread. On an H100
+# 80GB HBM3 at 700 W (PERF.md), 512 threads x 16 points took 15% less than
+# 1024 x 8 at 8192 points, and rows of 64 to 1024 points 6-25% less at one
+# point a thread up to 256 threads than at 16 points a thread
+BLOCK_POINTS = 16
+BLOCK_THREADS = 512
+SHORT_ROW_THREADS = 256
 # fps_cluster_kernel (csrc/fps.cu kCluster, kClusterThreads, kRegPoints):
 # CTAs of the cluster that samples one row (a non-portable cluster size; 8
 # took longer on the H100, PERF.md), threads a CTA and points a thread keeps
@@ -42,6 +53,28 @@ def route(n: int, shared_bytes: int) -> str:
     ``shared_bytes`` of dynamic shared memory: ``"fps"`` when the row fits
     there, else ``"fps_perrow"``."""
     return "fps" if ROW_BYTES * n <= shared_bytes else "fps_perrow"
+
+
+class BlockLayout(NamedTuple):
+    """How ``fps`` lays a row over one block: each of ``threads`` threads
+    keeps ``reg_points`` points in registers; the last ``shared`` points of
+    the row keep their distances in shared memory only."""
+
+    reg_points: int
+    threads: int
+    shared: int
+
+
+def block_layout(n: int) -> BlockLayout:
+    """The layout of a row of ``n`` points: a point a thread up to
+    SHORT_ROW_THREADS threads (a whole number of warps), or BLOCK_THREADS
+    for a row longer than SHORT_ROW_THREADS * BLOCK_POINTS; then the fewest
+    points a thread (a power of two) that hold the row, or BLOCK_POINTS and
+    the rest in shared memory."""
+    most = SHORT_ROW_THREADS if n <= SHORT_ROW_THREADS * BLOCK_POINTS else BLOCK_THREADS
+    t = min(most, 32 * max(1, -(-n // 32)))
+    p = min(BLOCK_POINTS, 1 << (-(-n // t) - 1).bit_length())
+    return BlockLayout(p, t, max(0, n - p * t))
 
 
 class Slice(NamedTuple):
@@ -108,8 +141,9 @@ def farthest_point_sample(points: torch.Tensor, npoint: int, valid_mask=None):
     stream = _cuda.stream(p)
     avail = shared_bytes(p.device)
     if route(N, avail) == "fps":
+        layout = block_layout(N)
         fn = _cuda.function("fps", "fps")
-        _cuda.launch(fn, p.data_ptr(), mask_ptr, B, N, npoint, out.data_ptr(), stream)
+        _cuda.launch(fn, p.data_ptr(), mask_ptr, B, N, npoint, layout.reg_points, layout.threads, out.data_ptr(), stream)
         launches += 1
     else:
         slice_len, smem_points, slices = cluster_split(N, avail)
