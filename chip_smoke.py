@@ -14,14 +14,20 @@ Phases, each of which fails the run with a nonzero exit:
      1) in both its modes, demand-gated and brute, on every query, also with
      masked refs and rows with fewer than k real refs (ties to the lower
      index); the block layouts of FPS (rows of 1 to the longest the block
-     kernel takes, npoint = N and > N, invalid rows, a batch of 8) and of
-     the ball query (blocks cut short, tile tails, all balls empty or full in
-     the first tile, K of 1 and 64); each kernel is timed with CUDA events
-     beside its plain version, a one-call PyTorch yardstick where one exists,
-     and its bound (row 1's from the pairs its route's mode scanned, the
-     all-pairs bound beside it); rows 2-4 at their first launch of the
-     forward, then at every launch (SA1-SA4, FP1-FP4), each held and timed,
-     under "levels" with their sum;
+     kernel takes, npoint = N and > N, invalid rows, a batch of 8), of the
+     ball query (blocks cut short, tile tails, all balls empty or full in
+     the first tile, K of 1 and 64) and of the three-NN (row 4 at every
+     lanes a query and queries a thread: ties, masked refs, k of 1, 3 and 8,
+     fewer refs than lanes x k, tails of tiles and of lane groups, both tile
+     copies); each kernel is timed with CUDA events beside its plain
+     version, a PyTorch yardstick where one exists (for the kNN kernels,
+     rows 1, 4, 6 and 7, torch.cdist then topk over the same queries; a
+     single call above YARDSTICK_ONCE_PAIRS pairs), and
+     its bound, the larger of its instructions over the instruction floor
+     and its bytes over HBM bandwidth (row 1's from the pairs its route's
+     mode scanned, the all-pairs bound beside it); rows 2-4 at their first
+     launch of the forward, then at every launch (SA1-SA4, FP1-FP4), each
+     held and timed, under "levels" with their sum;
   4. slice: entry() at the default Config() (full width, bf16, B=1, N=8192,
      V=5 views of 120x160) answers 5 requests, each on a fresh numpy-seeded
      batch; every request must launch each kernel the expected number of
@@ -45,8 +51,7 @@ Phases, each of which fails the run with a nonzero exit:
            SA2); the fusion kNN at full shape in both modes, held
            on the first 256 queries of each row of the full run (its plain
            version cannot run the full shape); each timed at the full shape,
-           and rows 1, 6 and 7 also on the 256 queries that the plain
-           version and torch.cdist take;
+           beside the cdist + topk yardstick on the same queries;
        (c) predict_scene through the kernels and with set_impl("reference")
            at the config's widths with data.num_points=16384 and
            data.num_views_eval=8 (SA1 rows of 16,384 points still take the
@@ -103,10 +108,18 @@ import time
 
 import numpy as np
 
-# published peaks of one H100 SXM at its full 700 W (NVIDIA data sheet):
-# f32 outside the tensor cores, and HBM3 bandwidth
-F32_OPS_PER_S = 67e12
+# the instruction floor of one H100 SXM at its full 700 W outside the tensor
+# cores: 132 SMs x 128 FP32 lanes x 1.98 GHz = 33.5e12 lane-instructions a
+# second (NVIDIA's 67 TFLOP/s counts an FMA as two operations). The kernels
+# build with -fmad=false, so each operation they count (a subtraction, a
+# product, a sum, a compare) is one instruction of its own; and HBM3 bandwidth
+INSTR_PER_S = 33.5e12
 HBM_BYTES_PER_S = 3.35e12
+# elements of one (queries, refs) distance block of the cdist + topk yardstick;
+# above YARDSTICK_ONCE_PAIRS (query, ref) pairs one call of it takes seconds,
+# and it is timed once, with no warm-up
+YARDSTICK_ELEMS = 1 << 30
+YARDSTICK_ONCE_PAIRS = 1 << 36
 KERNEL_REPS = 30
 PLAIN_REPS = 5
 # per request: fusion kNN once, FPS / ball query / three-NN once per level
@@ -175,8 +188,20 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
 
 
 def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    """The least time of ``ops`` instructions and ``nbytes`` moved: the
+    instruction floor or the bytes over HBM bandwidth, the larger."""
+    t_ops, t_bytes = ops / INSTR_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def cdist_topk(torch, q, r, k: int):
+    """The same-function yardstick of the kNN kernels: torch.cdist, then
+    topk(k, largest=False), over every query, in blocks of queries where the
+    whole (M, N) distance matrix would not fit. The port never calls it."""
+    B, M, N = q.shape[0], q.shape[1], r.shape[1]
+    step = max(1, YARDSTICK_ELEMS // (B * N))
+    out = [torch.cdist(q[:, s : s + step], r).topk(k, dim=-1, largest=False) for s in range(0, M, step)]
+    return torch.cat([o.values for o in out], 1), torch.cat([o.indices for o in out], 1)
 
 
 def same(torch, name: str, got, want) -> float:
@@ -324,6 +349,48 @@ def layout_edge_checks(torch, cfg, pts, rnd) -> list:
         ("ball_query full balls beside empty ones", lambda: bq.ball_query(mixed, pts, 1.0, 32),
          lambda: reference.ball_query(mixed, pts, 1.0, 32)),
     ]
+    return checks + knn_layout_checks(torch, rnd)
+
+
+def knn_layout_checks(torch, rnd) -> list:
+    """(name, kernel, plain) checks of row 4 at every layout its kernel
+    takes, lanes a query 1 to 32 by each of QUERIES_PER_THREAD (a superset
+    of what ops.knn.layout picks), each on two batch rows of: exact ties
+    (every ref twice, queries on refs) at k = 3 over 300 refs in tiles of 64
+    (bulk copies, a short last tile); masked refs (the 1e9 sentinel) at k = 8
+    over 301 (plain loads, a padded quad); k = 1 over 2052 refs in tiles of
+    1024 (a last tile of 4) with 1000 queries; 9 refs at k = 8 (fewer than
+    lanes x k); and k = 3 over 2049 refs (a plain-load tile tail). The query
+    counts (37, 1000) end inside a block's lane groups."""
+    from mvpnet_torch.ops import KERNELS, reference
+
+    brute = KERNELS["knn"]
+    r150 = rnd(2, 150, 3)
+    ties_q = rnd(2, 37, 3)
+    ties_q[:, :10] = r150[:, :10]
+    masked = rnd(2, 301, 3)
+    masked[:, ::3] = reference.MASK_COORD
+    cases = [  # (queries, refs, k, tile)
+        (ties_q, torch.cat([r150, r150], 1), 3, 64),
+        (rnd(2, 37, 3), masked, 8, 64),
+        (rnd(2, 1000, 3), rnd(2, 2052, 3), 1, brute.MAX_TILE),
+        (rnd(2, 37, 3), rnd(2, 9, 3), 8, 12),
+        (rnd(2, 37, 3), rnd(2, 2049, 3), 3, brute.MAX_TILE),
+    ]
+
+    def run(lanes, per_thread):
+        return tuple(x for q, r, k, tile in cases for x in brute.knn_at(q, r, k, lanes, per_thread, tile))
+
+    def plain():
+        return tuple(x for q, r, k, _ in cases for x in reference.knn(q, r, k))
+
+    checks = []
+    lanes = 1
+    while lanes <= brute.MAX_LANES:
+        for per_thread in sorted(brute.QUERIES_PER_THREAD):
+            checks.append((f"knn layout lanes={lanes} queries a thread={per_thread} (ties, masked refs, k=1/3/8, "
+                           f"N < lanes x k, tile tails)", functools.partial(run, lanes, per_thread), plain))
+        lanes *= 2
     return checks
 
 
@@ -354,7 +421,7 @@ def level_cases(torch, cfg, pts) -> dict:
             d, s, k = lv["args"]
             B, M, Ns = d.shape[0], d.shape[1], s.shape[1]
             ops, nbytes = 9.0 * B * M * Ns, 4.0 * (3 * B * M + 3 * B * Ns + 2 * B * M * k)
-            library = functools.partial(torch.cdist, d, s)
+            library = functools.partial(cdist_topk, torch, d, s, k)
         out[lv["kernel"]].append(dict(
             name=lv["kernel"], level=lv["level"], shape=lv["shape"], kern=lv["run"], plain=lv["plain"],
             library=library, ops=ops, nbytes=nbytes, reps=10 if ops > 1e10 else KERNEL_REPS,
@@ -433,13 +500,10 @@ def fusion_case(torch, q, r, k, shape, subset=None, prepared=None) -> dict:
         fail(f"knn_fusion [{shape}]: one call launched {ops.launch_counts()}")
     return dict(
         name="knn_fusion", shape=shape, reps=reps,
-        kern=run, check=lambda: tuple(x[:, :rows] for x in run()), rows_of_full_run=True,
+        kern=run, check=lambda: tuple(x[:, :rows] for x in run()),
         plain=lambda: reference.knn(q_sub, r, k),
         plain_shape=f"{B}x{rows} queries (the first of each row) of the full search",
-        library=lambda: torch.cdist(q_sub, r),
-        # the kernel on the library call's queries alone, its like for like
-        subset_kern=(lambda: fusion.knn_prepared(q_sub, prepared, k)) if prepared is not None
-        else (lambda: fusion.knn(q_sub, r, k, mode=mode)),
+        library=lambda: cdist_topk(torch, q, r, k), library_once=B * M * N > YARDSTICK_ONCE_PAIRS,
         ops=9.0 * modes[mode]["scanned_pairs"], ops_all_pairs=9.0 * B * M * N,
         nbytes=4.0 * (3 * B * M + 3 * B * N + 2 * B * M * k),
         extra={"mode": mode, "modes": modes},
@@ -448,16 +512,22 @@ def fusion_case(torch, q, r, k, shape, subset=None, prepared=None) -> dict:
 
 def measure(torch, case: dict) -> dict:
     """Hold a kernel against its plain version and time both; the row of the
-    kernels line. ``kern`` runs the kernel at the path's shape; where the
-    plain version cannot run that shape in time, ``check`` runs the kernel on
-    the plain version's smaller inputs (``plain_shape``), which the library
-    call then takes too."""
+    kernels line. ``kern`` runs the kernel at the path's shape, and so does
+    the library call; where the plain version cannot run that shape in time,
+    ``check`` gives the kernel's outputs on the plain version's smaller
+    inputs (``plain_shape``). With ``library_once`` the library call is
+    timed once, with no warm-up."""
     reps = case.get("reps", KERNEL_REPS)
     check = case.get("check", case["kern"])
     err = same(torch, case["name"], check(), case["plain"]())
     ms = cuda_ms(torch, case["kern"], reps)
     plain_ms = cuda_ms(torch, case["plain"], PLAIN_REPS, warmup=1)
-    lib_ms = cuda_ms(torch, case["library"], reps) if case["library"] else None
+    if not case["library"]:
+        lib_ms = None
+    elif case.get("library_once"):
+        lib_ms = cuda_ms(torch, case["library"], 1, warmup=0)
+    else:
+        lib_ms = cuda_ms(torch, case["library"], reps)
     b_ms, b_by = bound_ms(case["ops"], case["nbytes"])
     source, replaces = TPU_KERNELS[case["name"]]
     row = {
@@ -467,16 +537,12 @@ def measure(torch, case: dict) -> dict:
     }
     if "check" in case:
         row["plain_shape"] = case["plain_shape"]
-        # the kernel on the plain version's inputs, which the library call takes too
-        on_plain = case["subset_kern"] if case.get("rows_of_full_run") else check
-        row["ms_on_plain_shape"] = cuda_ms(torch, on_plain, reps)
     if "ops_all_pairs" in case:  # a gated kernel: the bound counts the pairs its gate let through
         row["bound_ms_all_pairs"] = bound_ms(case["ops_all_pairs"], case["nbytes"])[0]
     row.update(case.get("extra", {}))
     print(f"  {case['name']} [{case['shape']}]: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain"
           f"{' [' + case['plain_shape'] + ']' if 'check' in case else ''}, "
-          f"library {lib_ms}{', kernel ' + format(row['ms_on_plain_shape'], '.4f') + ' ms on its inputs' if 'check' in case else ''}"
-          f", bound {b_ms:.6f} ms ({b_by})", flush=True)
+          f"library {lib_ms}, bound {b_ms:.6f} ms ({b_by})", flush=True)
     torch.cuda.empty_cache()
     return row
 
@@ -706,11 +772,10 @@ def gated_case(torch, name, q, r, k, shape, reps=KERNEL_REPS) -> dict:
     return dict(
         name=name, shape=shape, reps=reps,
         kern=lambda: mod.knn(q, r, k),
-        check=lambda: tuple(x[:, :FUSION_SUBSET] for x in mod.knn(q, r, k)), rows_of_full_run=True,
+        check=lambda: tuple(x[:, :FUSION_SUBSET] for x in mod.knn(q, r, k)),
         plain=lambda: mod.plain(q, r, k, rows=rows),
         plain_shape=f"{B}x{FUSION_SUBSET} queries (the first of each row) of the full search",
-        library=lambda: torch.cdist(q[:, :FUSION_SUBSET], r),
-        subset_kern=lambda: mod.knn(q[:, :FUSION_SUBSET].contiguous(), r, k),
+        library=lambda: cdist_topk(torch, q, r, k), library_once=B * M * N > YARDSTICK_ONCE_PAIRS,
         ops=scanned_ops(torch, mod, q, r, k), ops_all_pairs=9.0 * B * M * N,
         nbytes=4.0 * (3 * B * M + 3 * B * N + 2 * B * M * k),
     )

@@ -45,6 +45,29 @@ __device__ __forceinline__ void mvp_topk_insert(float (&bd)[K], int (&bi)[K],
   }
 }
 
+// mvp_topk_insert's function (the same list for every input), written as
+// selects from where d goes (c[s]: entry s stays, bd[s] <= d) instead of a
+// chain of swaps. Which form is faster depends on the caller (H100, PERF.md
+// row 4): knn.cu inserts a group of 4Q candidates back to back behind one
+// guard, and ran fastest with this form; rows 1 (brute), 6 and 7 insert one
+// candidate a guard and ran 2-14% slower with it, so they keep the swaps.
+template <int K>
+__device__ __forceinline__ void mvp_topk_insert_select(float (&bd)[K], int (&bi)[K],
+                                                       float d, int j) {
+  if (d < bd[K - 1]) {
+    bool c[K];  // never the K-th entry, which d replaces
+#pragma unroll
+    for (int s = 0; s < K; ++s) c[s] = s < K - 1 && bd[s] <= d;
+#pragma unroll
+    for (int s = K - 1; s > 0; --s) {
+      bd[s] = c[s] ? bd[s] : (c[s - 1] ? d : bd[s - 1]);
+      bi[s] = c[s] ? bi[s] : (c[s - 1] ? j : bi[s - 1]);
+    }
+    bd[0] = c[0] ? bd[0] : d;
+    bi[0] = c[0] ? bi[0] : j;
+  }
+}
+
 // Min (max) of v over the W consecutive lanes of this thread's group (W a
 // power of two <= 32): the query subgroups of the gated kernels.
 template <int W>
@@ -116,6 +139,97 @@ __device__ __forceinline__ void mvp_scan_refs(const float* __restrict__ r,
       }
     }
   }
+}
+
+// (d, i) comes before (d2, i2) in the (distance, index) order
+__device__ __forceinline__ bool precedes(float d, int i, float d2, int i2) {
+  return d < d2 || (d == d2 && i < i2);
+}
+
+// Insert (d, j) into a list sorted by (distance, index), in any arrival order.
+template <int K>
+__device__ __forceinline__ void insert_ordered(float (&bd)[K], int (&bi)[K], float d, int j) {
+  if (d <= bd[K - 1] && (d < bd[K - 1] || j < bi[K - 1])) {  // precedes(d, j, k-th)
+    bd[K - 1] = d;
+    bi[K - 1] = j;
+#pragma unroll
+    for (int s = K - 1; s > 0; --s) {
+      if (precedes(bd[s], bi[s], bd[s - 1], bi[s - 1])) {
+        const float td = bd[s];
+        bd[s] = bd[s - 1];
+        bd[s - 1] = td;
+        const int ti = bi[s];
+        bi[s] = bi[s - 1];
+        bi[s - 1] = ti;
+      }
+    }
+  }
+}
+
+// The top-K, in (distance, index) order, of the union of the disjoint lists
+// of the `lanes` consecutive lanes of this thread's aligned group (a power
+// of two up to 32), to each of them: a butterfly of shuffles. Every lane of
+// the warp must call it. Unfilled slots are (+inf, INT_MAX), after every
+// real entry. A caller with a constant lane count gets the rounds unrolled.
+template <int K>
+__device__ __forceinline__ void merge_lanes(const float (&bd)[K], const int (&bi)[K],
+                                            float (&md)[K], int (&mi)[K], int lanes) {
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    md[t] = bd[t];
+    mi[t] = bi[t];
+  }
+#pragma unroll
+  for (int off = 1; off < lanes; off <<= 1) {
+    float od[K];
+    int oi[K];
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      od[t] = __shfl_xor_sync(MVP_FULL_MASK, md[t], off);
+      oi[t] = __shfl_xor_sync(MVP_FULL_MASK, mi[t], off);
+    }
+#pragma unroll
+    for (int t = 0; t < K; ++t) insert_ordered<K>(md, mi, od[t], oi[t]);
+  }
+}
+
+// Asynchronous 1-D bulk copies (TMA) into shared memory, completing on an
+// mbarrier (sm_90).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)));
+}
+
+// Arm the barrier for one copy of `bytes`, then start the 1-D bulk copy
+// (TMA) of `bytes` from global `src` to shared `dst`, completing on it.
+// src, dst and bytes must be multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  // earlier generic-proxy reads of dst are ordered before the async write
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 extern "C" const char* mvp_error_string(int err) {

@@ -50,9 +50,10 @@
 // slice of refs, scanned in index order, and a merge takes the slices' lists
 // in slice order with strict '<', so ties go to the lower index.
 //
-// Bound on the H100: operations, 9 f32 operations per (query, ref) pair that
-// is scanned; the brute mode scans every pair (5.0e11 at the scene shape:
-// 67.6 ms at 67 TFLOP/s), the demand mode the pairs its gates let through (it
+// Bound on the H100: instructions, 9 per (query, ref) pair that is scanned
+// (-fmad=false: each operation its own), at 33.5e12 lane-instructions a
+// second; the brute mode scans every pair (5.0e11 at the scene shape: 135 ms),
+// the demand mode the pairs its gates let through (it
 // counts them into `scanned`), with each scanned tile read from L2 or device
 // memory once per block. On an H100 80GB HBM3 at 700 W the scene shape takes
 // 256 ms brute and 14.6 ms in the demand mode with its prep (1.7% of the
@@ -156,91 +157,6 @@ constexpr int kRowsPerWarp = 32 / kLanes;     // 8: the sub-gate's subgroup
 constexpr int kMaxTileM = 128;
 constexpr int kBoxFloats = 12;                // real lo, hi; sentinel lo, hi
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)));
-}
-
-// Arm the barrier for one copy of `bytes`, then start the 1-D bulk copy
-// (TMA) of `bytes` from global `src` to shared `dst`, completing on it.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  // earlier generic-proxy reads of dst are ordered before the async write
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// (d, i) comes before (d2, i2) in the (distance, index) order
-__device__ __forceinline__ bool precedes(float d, int i, float d2, int i2) {
-  return d < d2 || (d == d2 && i < i2);
-}
-
-// Insert (d, j) into a list sorted by (distance, index), in any arrival order.
-template <int K>
-__device__ __forceinline__ void insert_ordered(float (&bd)[K], int (&bi)[K], float d, int j) {
-  if (d <= bd[K - 1] && (d < bd[K - 1] || j < bi[K - 1])) {  // precedes(d, j, k-th)
-    bd[K - 1] = d;
-    bi[K - 1] = j;
-#pragma unroll
-    for (int s = K - 1; s > 0; --s) {
-      if (precedes(bd[s], bi[s], bd[s - 1], bi[s - 1])) {
-        const float td = bd[s];
-        bd[s] = bd[s - 1];
-        bd[s - 1] = td;
-        const int ti = bi[s];
-        bi[s] = bi[s - 1];
-        bi[s - 1] = ti;
-      }
-    }
-  }
-}
-
-// The top-K of the union of the kLanes lanes' (disjoint) lists of this
-// thread's query row, to each of them.
-template <int K>
-__device__ __forceinline__ void merge_lanes(const float (&bd)[K], const int (&bi)[K],
-                                            float (&md)[K], int (&mi)[K]) {
-#pragma unroll
-  for (int t = 0; t < K; ++t) {
-    md[t] = bd[t];
-    mi[t] = bi[t];
-  }
-#pragma unroll
-  for (int off = 1; off < kLanes; off <<= 1) {
-    float od[K];
-    int oi[K];
-#pragma unroll
-    for (int t = 0; t < K; ++t) {
-      od[t] = __shfl_xor_sync(MVP_FULL_MASK, md[t], off);
-      oi[t] = __shfl_xor_sync(MVP_FULL_MASK, mi[t], off);
-    }
-#pragma unroll
-    for (int t = 0; t < K; ++t) insert_ordered<K>(md, mi, od[t], oi[t]);
-  }
-}
-
 template <int K>
 __global__ void __launch_bounds__(kMaxTileM * kLanes)
 knn_demand_kernel(const float* __restrict__ q, const float4* __restrict__ r4,
@@ -328,7 +244,7 @@ knn_demand_kernel(const float* __restrict__ q, const float4* __restrict__ r4,
         if ((tid & 31) == 0) pairs += (unsigned long long)kRowsPerWarp * ncols;
         float md[K];
         int mi[K];
-        merge_lanes<K>(bd, bi, md, mi);
+        merge_lanes<K>(bd, bi, md, mi, kLanes);
         kth = md[K - 1];
       }
     }
@@ -338,7 +254,7 @@ knn_demand_kernel(const float* __restrict__ q, const float4* __restrict__ r4,
 
   float md[K];
   int mi[K];
-  merge_lanes<K>(bd, bi, md, mi);
+  merge_lanes<K>(bd, bi, md, mi, kLanes);
   if (real && lane4 == 0) {
 #pragma unroll
     for (int t = 0; t < K; ++t) {

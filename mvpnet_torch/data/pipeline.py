@@ -261,10 +261,14 @@ class PrefetchIterator:
     copies and issues the next batch's copy before it returns, so the copy
     overlaps the caller's step (a copy and the step that reads it run in
     order on the current stream). With ``pack`` a batch is one buffer and
-    one copy (``pack_batch``). The source gives each thread its own batch
-    stream (``source.worker_iter(worker_id)``, as ``ChunkDataset`` does), so
-    the threads share no state. A producer's exception is raised by
-    ``__next__``; ``close()`` stops and joins the threads."""
+    one copy (``pack_batch``; dict batches only). A source with
+    ``worker_iter(worker_id)`` (``ChunkDataset``) gives each thread its own
+    batch stream, so the threads share no state; any other iterable is one
+    stream that the threads take in turn behind a lock, so its batches come
+    out in its order. A batch that is not a dict (a tuple, a list, an array)
+    crosses element by element in the same structure. A producer's
+    exception is raised by ``__next__``; ``close()`` stops and joins the
+    threads."""
 
     def __init__(self, source, prefetch: int = 2, num_threads: int = 4, device=None, pack: bool = False):
         self._queue: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
@@ -273,8 +277,11 @@ class PrefetchIterator:
         self._ready = None  # the transferred-ahead batch
         self._ready_exc = None  # a failure of that transfer, raised next call
         self._stop = threading.Event()
+        per_worker = hasattr(source, "worker_iter")
+        self._shared = None if per_worker else iter(source)
+        self._lock = threading.Lock()
         self._threads = [
-            threading.Thread(target=self._worker, args=(source.worker_iter(i),), daemon=True)
+            threading.Thread(target=self._worker, args=(source.worker_iter(i) if per_worker else None,), daemon=True)
             for i in range(num_threads)
         ]
         for t in self._threads:
@@ -293,7 +300,13 @@ class PrefetchIterator:
     def _worker(self, batches):
         try:
             while not self._stop.is_set():
-                self._enqueue(next(batches))
+                if batches is not None:
+                    self._enqueue(next(batches))
+                else:
+                    # the shared stream: taken and queued under one lock, so
+                    # its order holds and the end comes after its last batch
+                    with self._lock:
+                        self._enqueue(next(self._shared))
         except StopIteration:
             self._enqueue(_END)
         except BaseException as e:  # carried to the consumer
@@ -302,21 +315,35 @@ class PrefetchIterator:
     def __iter__(self):
         return self
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self._device.type == "cuda":
+    def _to_device(self, arr) -> torch.Tensor:
+        t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(arr))
+        if self._device.type == "cuda" and t.device.type == "cpu":
             return t.pin_memory().to(self._device, non_blocking=True)
         return t.to(self._device)
+
+    def _put(self, x):
+        """Arrays and tensors to the device, in the structure of dicts,
+        tuples (named ones too) and lists around them; anything else as it
+        is."""
+        if isinstance(x, (np.ndarray, torch.Tensor)):
+            return self._to_device(x)
+        if isinstance(x, dict):
+            return {k: self._put(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(self._put(v) for v in x))
+        if isinstance(x, (tuple, list)):
+            return type(x)(self._put(v) for v in x)
+        return x
 
     def _transfer(self, item):
         if item is _END or isinstance(item, _WorkerError):
             return item
-        if self._pack:
+        if self._pack and isinstance(item, dict):
             packed, layout, extras = pack_batch(item)
             out = unpack_batch(self._to_device(packed), layout)
             out.update(extras)
             return out
-        return {k: self._to_device(v) if isinstance(v, np.ndarray) else v for k, v in item.items()}
+        return self._put(item)
 
     def __next__(self):
         if self._ready_exc is not None:

@@ -6,7 +6,8 @@ behind one signature:
     ``fps`` and ``ballquery``);
   * the plain PyTorch versions (``reference``).
 
-``set_impl`` chooses:
+``set_impl`` chooses, and a call's ``impl=`` overrides it for that call
+alone (``get_impl`` reads it):
   * ``"auto"`` (default): a CUDA tensor launches the kernel, a CPU tensor
     takes the plain version. On the card every FPS, ball query, kNN and
     three-NN call goes through a kernel, at every size.
@@ -75,6 +76,10 @@ def set_impl(name: str) -> None:
     _impl = name
 
 
+def get_impl() -> str:
+    return _impl
+
+
 def set_fusion_variant(name: str) -> None:
     """Kernel of fusion-size searches: "demand", "gated" or "resident"."""
     global _fusion_variant
@@ -93,18 +98,22 @@ def reset_launch_counts() -> None:
         mod.launches = 0
 
 
-def _plain(t) -> bool:
-    """True when the plain version runs: explicit "reference" mode. In
-    "cuda" mode a CPU tensor raises; in "auto" the wrapper decides by device."""
-    if _impl == "reference":
+def _plain(t, impl: str | None = None) -> bool:
+    """True when the plain version runs: explicit "reference" mode (the
+    call's ``impl``, else the module's). In "cuda" mode a CPU tensor raises;
+    in "auto" the wrapper decides by device."""
+    mode = _impl if impl is None else impl
+    if mode not in _IMPLS:
+        raise ValueError(f"unknown ops impl {mode!r}; expected one of {_IMPLS}")
+    if mode == "reference":
         return True
-    if _impl == "cuda" and not t.is_cuda:
+    if mode == "cuda" and not t.is_cuda:
         raise RuntimeError("ops impl 'cuda' needs CUDA tensors, got a CPU tensor")
     return False
 
 
-def _knn_search(queries, refs, k):
-    if _plain(queries):
+def _knn_search(queries, refs, k, impl):
+    if _plain(queries, impl):
         return _ref.knn(queries, refs, k)
     if _knn_bucketed.supported(queries.shape[1], refs.shape[1]):
         if _fusion_variant == "gated":
@@ -121,9 +130,9 @@ class _KnnFunction(torch.autograd.Function):
     dq = sum_k g * 2(q - r[idx]) and dr the index_add_ of -g (duplicates add)."""
 
     @staticmethod
-    def forward(ctx, queries, refs, k, prepared=None):
-        if prepared is None or _plain(queries):
-            d, idx = _knn_search(queries, refs, k)
+    def forward(ctx, queries, refs, k, impl, prepared=None):
+        if prepared is None or _plain(queries, impl):
+            d, idx = _knn_search(queries, refs, k, impl)
         else:  # refs prepared by knn_prepare: the fusion kernel's demand mode
             d, idx = _knn_bucketed.knn_prepared(queries, prepared, k)
         ctx.mark_non_differentiable(idx)
@@ -146,37 +155,39 @@ class _KnnFunction(torch.autograd.Function):
             dr = torch.zeros((B * N, 3), dtype=torch.float32, device=r.device)
             dr.index_add_(0, rows, -g.reshape(B * M * k, 3))
             dr = dr.reshape(B, N, 3).to(refs.dtype)
-        return dq, dr, None, None
+        return dq, dr, None, None, None
 
 
-def _knn_dispatch(queries, refs, k):
-    return _KnnFunction.apply(queries, refs, k)
+def _knn_dispatch(queries, refs, k, impl=None):
+    return _KnnFunction.apply(queries, refs, k, impl)
 
 
-def knn(queries, refs, k: int, ref_mask=None):
+def knn(queries, refs, k: int, ref_mask=None, impl: str | None = None, refs_coherent: bool = False):
     """k nearest neighbors; see reference.knn. Masked refs move to the 1e9
-    sentinel (as the Pallas wrappers do) before either version runs."""
-    return _knn_dispatch(queries, _ref.mask_points(refs, ref_mask), k)
+    sentinel (as the Pallas wrappers do) before either version runs.
+    ``refs_coherent`` is the JAX package's speed hint for its gated kernel;
+    it changes no result and is ignored here."""
+    return _knn_dispatch(queries, _ref.mask_points(refs, ref_mask), k, impl)
 
 
-def farthest_point_sample(points, npoint: int, valid_mask=None):
+def farthest_point_sample(points, npoint: int, valid_mask=None, impl: str | None = None):
     """Farthest point sampling; see reference.farthest_point_sample."""
-    if _plain(points):
+    if _plain(points, impl):
         return _ref.farthest_point_sample(points, npoint, valid_mask)
     return _fps.farthest_point_sample(points, npoint, valid_mask)
 
 
-def ball_query(centers, points, radius: float, nsample: int, valid_mask=None):
+def ball_query(centers, points, radius: float, nsample: int, valid_mask=None, impl: str | None = None):
     """Fixed-K radius neighborhood; see reference.ball_query."""
-    if _plain(centers):
+    if _plain(centers, impl):
         return _ref.ball_query(centers, points, radius, nsample, valid_mask)
     return _bq.ball_query(centers, points, radius, nsample, valid_mask)
 
 
-def three_nn_interpolate(dense_xyz, sparse_xyz, sparse_feat, eps: float = 1e-8):
+def three_nn_interpolate(dense_xyz, sparse_xyz, sparse_feat, eps: float = 1e-8, impl: str | None = None):
     """Inverse-distance-weighted 3-NN upsampling; the 3-NN search goes
     through the dispatched kNN (a kernel on the card)."""
-    d2, idx = _knn_dispatch(dense_xyz, sparse_xyz, 3)
+    d2, idx = _knn_dispatch(dense_xyz, sparse_xyz, 3, impl)
     return _ref.interpolate(d2, idx, sparse_feat, eps)
 
 
@@ -188,23 +199,23 @@ class RawRefs:
         self.refs = refs
 
 
-def knn_prepare(refs):
+def knn_prepare(refs, impl: str | None = None):
     """Prepare a ref cloud once for many ``knn_prepared`` queries, as
     ``mvpnet_tpu/ops/__init__.py::knn_prepare`` does: a cloud of at least
     2^15 refs on the card becomes a ``morton.PreparedRefs`` (Morton-sorted
     by its own real box, padded, tile boxes, the float4 layout of the
     demand-gated fusion kNN, and the raw refs for the backward); anything
     else, and every cloud under the plain versions, a ``RawRefs``."""
-    if _plain(refs) or not refs.is_cuda or refs.shape[1] < _knn_bucketed.MIN_N:
+    if _plain(refs, impl) or not refs.is_cuda or refs.shape[1] < _knn_bucketed.MIN_N:
         return RawRefs(refs)
     return _knn_bucketed.prepare(refs)
 
 
-def knn_prepared(queries, prepared, k: int):
+def knn_prepared(queries, prepared, k: int, impl: str | None = None):
     """kNN against a ``knn_prepare`` result; the contract of ``knn``. A
     prepared cloud takes the fusion kernel's demand mode (only the query
     side is prepared per call); a ``RawRefs`` the dispatched ``knn``. The
     gradient is ``knn``'s, to the queries and to ``prepared.refs``."""
     if isinstance(prepared, RawRefs):
-        return _knn_dispatch(queries, prepared.refs, k)
-    return _KnnFunction.apply(queries, prepared.refs, k, prepared)
+        return _knn_dispatch(queries, prepared.refs, k, impl)
+    return _KnnFunction.apply(queries, prepared.refs, k, impl, prepared)

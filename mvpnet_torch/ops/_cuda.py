@@ -108,7 +108,7 @@ _INT_OUT = ctypes.POINTER(ctypes.c_int)
 _FLOAT = ctypes.c_float
 # C signatures of the kernels' entry points (see each csrc/<name>.cu)
 _SIGNATURES = {
-    ("knn", "knn_brute"): (_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR),
+    ("knn", "knn_brute"): (_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR),
     ("knn_fusion", "knn_fusion"): (
         _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
     ),

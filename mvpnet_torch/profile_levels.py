@@ -1,4 +1,4 @@
-"""Device time of FPS, ball query and three-NN at every launch of a forward, on the card.
+"""Device time of FPS, ball query, three-NN and the fusion kNN at every launch of a forward, on the card.
 
     python3 -m mvpnet_torch.profile_levels [--paths chunk,scene,train] [--reps 20] [--out FILE]
 
@@ -10,14 +10,21 @@ first batch of the first prefetch worker's stream of ``train_entry()``'s
 synthetic training set, augmented from seed 0; the same in every run). It walks
 the levels as the forward does: FPS and ball query at SA1-SA4, the three-NN
 at FP1-FP4; FPS rows that ``ops.fps.route`` sends to ``fps_perrow`` are left
-out. Each launch is held against its plain version, then timed ``--reps``
+out; then the fusion kNN of the forward over the path's pixel cloud: row 1
+in the mode its ``route`` picks, and on the train path rows 6 and 7 (the
+kernels of ``ops.set_fusion_variant``) on the same search, each held on the
+first 256 queries of each row. Each launch is held against its plain
+version, then timed ``--reps``
 times two ways: CUDA events around the wrapper's call (the host's enqueue
 included; median), and the kernel's device time from ``torch.profiler``
 (mean a launch). Where ``ops.fps.block_layout`` exists, each FPS level is
 also timed on the other layouts of the block kernel that hold its row in
 registers (the C entry called straight, each equal to the wrapper's
-output). Prints one JSON line (the card, each path's input checksum, every
-level's times and each kernel's sums) and writes it to ``--out``.
+output); where ``ops.knn.layout`` exists, each three-NN level on every
+(lanes a query, queries a thread) that fits its tile (``knn_at``, each equal
+to the wrapper's output). Prints one JSON line (the card, each path's input
+checksum, every level's times and each kernel's sums) and writes it to
+``--out``.
 
 The script runs on whichever ``mvpnet_torch`` comes first on the path, so a
 copy of it placed in another checkout's package times that checkout's
@@ -45,12 +52,16 @@ from mvpnet_torch.profile_scene import SCENE
 from mvpnet_torch.train.step import prepare_batch
 
 PATHS = ("chunk", "scene", "train")
-# each wrapper's device kernel
-SYMBOLS = {"fps": "fps_shared_kernel", "ball_query": "ball_query_kernel", "knn": "knn_brute_kernel"}
+# each wrapper's device kernels (the fusion kNN's by its mode)
+SYMBOLS = {"fps": ("fps_shared_kernel",), "ball_query": ("ball_query_kernel",), "knn": ("knn_brute_kernel",),
+           "knn_gated": ("knn_gated_kernel",), "knn_resident": ("knn_resident_kernel",)}
+FUSION_SYMBOLS = {"brute": ("knn_slice_kernel", "knn_merge_kernel"), "demand": ("knn_demand_kernel",)}
+FUSION_SUBSET = 256  # queries of each row of a fusion search held against the plain version
 
 
 def path_points(path: str):
-    """(config, the (B, N, 3) input points of one forward on ``path``)."""
+    """(config, the (B, N, 3) input points of one forward on ``path``, its
+    (B, V*H*W, 3) pixel cloud)."""
     if path == "chunk":
         cfg = Config()
         batch = example_batch(np.random.default_rng(0), B=1, N=cfg.data.num_points, V=cfg.data.num_views_eval,
@@ -70,7 +81,8 @@ def path_points(path: str):
             s.pop("point_idx")
             s.pop("colors")
         prepared = prepare_batch(cfg, to_device(collate(samples), "cuda"), training=False)
-    return cfg, prepared["points"].float().contiguous()
+    pts = prepared["points"].float().contiguous()
+    return cfg, pts, prepared["image_xyz"].reshape(pts.shape[0], -1, 3).contiguous()
 
 
 def levels(cfg, pts) -> list[dict]:
@@ -106,6 +118,29 @@ def levels(cfg, pts) -> list[dict]:
     return out
 
 
+def fusion_levels(cfg, pts, pix, path: str) -> list[dict]:
+    """The fusion kNN of one forward on ``pts`` over the pixel cloud
+    ``pix``: row 1 in its route's mode, and on the train path rows 6 and 7 on
+    the same search; as ``levels``, with the device kernels (``symbols``) and
+    ``subset``, the queries of each row that ``plain`` gives (its plain
+    version cannot run the full search)."""
+    k = cfg.model.aggregation.k
+    B, M, N = pts.shape[0], pts.shape[1], pix.shape[1]
+    mode = KERNELS["knn_fusion"].route(B, M, N)
+    sub = pts[:, :FUSION_SUBSET].contiguous()
+    rows = torch.arange(FUSION_SUBSET, device=pts.device)
+    out = [dict(kernel="knn_fusion", level=mode, symbols=FUSION_SYMBOLS[mode],
+                plain=lambda: reference.knn(sub, pix, k))]
+    if path == "train":
+        out += [dict(kernel=name, level="variant", symbols=SYMBOLS[name],
+                     plain=lambda mod=KERNELS[name]: mod.plain(pts, pix, k, rows=rows))
+                for name in ("knn_gated", "knn_resident")]
+    for lv in out:
+        lv.update(shape=f"{B}x{M} queries over {N} refs, k={k}", subset=FUSION_SUBSET,
+                  run=lambda mod=KERNELS[lv["kernel"]]: mod.knn(pts, pix, k))
+    return out
+
+
 def events_ms(fn, reps: int) -> float:
     """Median ms of ``fn`` between two CUDA events."""
     fn()
@@ -121,12 +156,13 @@ def events_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, symbol: str, reps: int, attempts: int = 3) -> float:
-    """Mean device ms a launch of the kernel ``symbol`` over ``reps`` calls
-    of ``fn``, from torch.profiler, over the launches it recorded. The
-    profiler may miss a launch at the edge of its window, and now and then
-    a whole window: a window that recorded fewer than half the launches is
-    profiled again, up to ``attempts`` times."""
+def device_ms(fn, symbols: tuple, reps: int, attempts: int = 3) -> float:
+    """Device ms a call of ``fn`` spends in the kernels ``symbols``: for
+    each, its mean over the launches torch.profiler recorded in ``reps``
+    calls; their sum. The profiler may miss a launch at the edge of its
+    window, and now and then a whole window: a window that recorded fewer
+    than half the launches of a kernel is profiled again, up to
+    ``attempts`` times."""
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
@@ -134,10 +170,15 @@ def device_ms(fn, symbol: str, reps: int, attempts: int = 3) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        evts = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and symbol in e.key]
-        n = sum(e.count for e in evts)
-        if n >= reps // 2:
-            return sum(_device_ms(e) for e in evts) / n
+        means = []
+        for symbol in symbols:
+            evts = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and symbol in e.key]
+            n = sum(e.count for e in evts)
+            if n < reps // 2:
+                break
+            means.append(sum(_device_ms(e) for e in evts) / n)
+        else:
+            return sum(means)
     raise SystemExit(f"profile_levels: {n} launches of {symbol} profiled for {reps} calls, {attempts} times")
 
 
@@ -178,23 +219,49 @@ def fps_layouts(xyz, npoint: int, want, reps: int) -> dict | None:
     return out
 
 
+def knn_layouts(d, s, k: int, want, reps: int) -> dict | None:
+    """Device ms of the three-NN kernel on every layout (lanes x queries a
+    thread) at the wrapper's tile; None where the tree has no layout."""
+    brute = KERNELS["knn"]
+    if not hasattr(brute, "layout"):
+        return None
+    B, M, N = d.shape[0], d.shape[1], s.shape[1]
+    _, _, tile = brute.layout(B, M, N, torch.cuda.get_device_properties(d.device).multi_processor_count)
+    out = {}
+    lanes = 1
+    while lanes <= brute.MAX_LANES and lanes * brute.QUAD <= max(tile, brute.QUAD):
+        for per_thread in sorted(brute.QUERIES_PER_THREAD):
+            def run(lanes=lanes, per_thread=per_thread):
+                return brute.knn_at(d, s, k, lanes, per_thread, tile)
+
+            if not equal(run(), want):
+                raise SystemExit(f"profile_levels: knn layout {lanes}x{per_thread} at {B}x{M} over {N} differs")
+            out[f"{lanes}x{per_thread}"] = device_ms(run, SYMBOLS["knn"], reps)
+        lanes *= 2
+    return out
+
+
 def profile_path(path: str, reps: int) -> dict:
-    cfg, pts = path_points(path)
+    cfg, pts, pix = path_points(path)
     rows = []
-    for lv in levels(cfg, pts):
+    for lv in levels(cfg, pts) + fusion_levels(cfg, pts, pix, path):
         got = lv["run"]()
-        if not equal(got, lv["plain"]()):
+        n = lv.get("subset")
+        if not equal(got if n is None else tuple(x[:, :n] for x in got), lv["plain"]()):
             raise SystemExit(f"profile_levels: {path} {lv['kernel']} {lv['level']} differs from its plain version")
         row = dict(kernel=lv["kernel"], level=lv["level"], shape=lv["shape"], events_ms=events_ms(lv["run"], reps),
-                   device_ms=device_ms(lv["run"], SYMBOLS[lv["kernel"]], reps))
+                   device_ms=device_ms(lv["run"], lv["symbols"] if "symbols" in lv else SYMBOLS[lv["kernel"]], reps))
         if lv["kernel"] == "fps":
             row["layouts_device_ms"] = fps_layouts(*lv["args"], got, reps)
+        elif lv["kernel"] == "knn":
+            row["layouts_device_ms"] = knn_layouts(*lv["args"], got, reps)
         print(f"  {path} {row['kernel']} {row['level']} [{row['shape']}]: equal; events {row['events_ms']:.4f} ms, "
               f"device {row['device_ms']:.4f} ms{'; layouts ' + str(row['layouts_device_ms']) if row.get('layouts_device_ms') else ''}",
               flush=True)
         rows.append(row)
     sums = {
-        k: {m: sum(r[m] for r in rows if r["kernel"] == k) for m in ("events_ms", "device_ms")} for k in SYMBOLS
+        k: {m: sum(r[m] for r in rows if r["kernel"] == k) for m in ("events_ms", "device_ms")}
+        for k in dict.fromkeys(r["kernel"] for r in rows)
     }
     return {"points_sum": float(pts.double().sum()), "points_shape": list(pts.shape), "levels": rows, "sums": sums}
 

@@ -7,11 +7,14 @@ same native grid index (``native/host_index.cpp``), so their box queries
 return the same indices in the same order; the NumPy path returns the same
 set in index order.
 """
+import collections
 import dataclasses
 import pathlib
 
+import jax
 import numpy as np
 import pytest
+import torch
 
 from mvpnet_tpu.data import meta as jmeta
 from mvpnet_tpu.data import native as jnative
@@ -131,3 +134,82 @@ def test_meta_matches_jax():
     ids = np.array([0, 5, 19, -100, 3])
     np.testing.assert_array_equal(meta.remap_to_nyu40(ids), jmeta.remap_to_nyu40(ids))
     np.testing.assert_array_equal(meta.nyu40_to_train(), jmeta.nyu40_to_train())
+
+
+_Batch = collections.namedtuple("_Batch", ["points", "labels"])
+
+
+def _plain_batches(kind: str) -> list:
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(5):
+        points = rng.normal(size=(2, 16, 3)).astype(np.float32)
+        label = rng.integers(0, 20, (2, 16)).astype(np.int8)
+        if kind == "dict":
+            batches.append({"points": points, "seg_label": label})
+        elif kind == "namedtuple":
+            batches.append(_Batch(points, [label]))
+        else:
+            batches.append((points, [label]))
+    return batches
+
+
+def _host(x):
+    """A batch of device arrays (either package) as numpy, in its structure."""
+    if isinstance(x, dict):
+        return {k: _host(v) for k, v in x.items()}
+    if isinstance(x, _Batch):
+        return _Batch(*(_host(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_host(v) for v in x)
+    return np.asarray(x)
+
+
+@pytest.mark.parametrize("kind", ["dict", "tuple", "namedtuple"])
+@pytest.mark.parametrize("pack", [False, True], ids=["copies", "packed"])
+def test_prefetch_plain_iterator_matches_jax(kind, pack):
+    """A source with no worker_iter: one iterator the workers share, every
+    batch in its order, then StopIteration; only dict batches are packed,
+    and the rest cross in their own structure, as the JAX package's do."""
+    want = _plain_batches(kind)
+    got_port, got_jax = [], []
+    for module, out in ((pipeline, got_port), (jpipeline, got_jax)):
+        it = module.PrefetchIterator(iter(_plain_batches(kind)), prefetch=2, num_threads=1, pack=pack)
+        try:
+            out.extend(_host(b) for b in it)
+        finally:
+            it.close()
+    for batches in (got_port, got_jax):
+        assert len(batches) == len(want)
+        for got, ref in zip(batches, want):
+            assert type(got) is type(ref)
+            for g, w in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(ref)):
+                assert g.dtype == w.dtype
+                np.testing.assert_array_equal(g, w)
+
+
+def test_prefetch_moves_tensors_in_a_batch():
+    """Tensors inside a batch cross to the device as arrays do, in the
+    batch's structure."""
+    batch = (torch.ones(2, 3), [np.zeros(4, np.float32)])
+    it = pipeline.PrefetchIterator(iter([batch]), num_threads=1, device="meta")
+    try:
+        (got,) = list(it)
+    finally:
+        it.close()
+    assert isinstance(got, tuple) and isinstance(got[1], list)
+    assert got[0].device.type == "meta" and got[1][0].device.type == "meta"
+    assert got[0].shape == (2, 3) and got[1][0].shape == (4,)
+
+
+def test_prefetch_plain_iterator_keeps_order_across_threads():
+    """Four workers on one shared stream: every batch once, in order, and the
+    end of the stream after the last of them."""
+    batches = [{"i": np.full(1, i, np.int64)} for i in range(200)]
+    it = pipeline.PrefetchIterator(iter(batches), prefetch=4, num_threads=4)
+    try:
+        got = [int(b["i"][0]) for b in it]
+    finally:
+        it.close()
+    assert got == list(range(200))
+    assert all(not t.is_alive() for t in it._threads)

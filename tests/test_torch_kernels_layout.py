@@ -1,13 +1,18 @@
-"""The block layouts of the FPS and ball-query kernels (csrc/fps.cu,
-csrc/ballquery.cu), held on the CPU.
+"""The block layouts of the FPS, ball-query and three-NN kernels
+(csrc/fps.cu, csrc/ballquery.cu, csrc/knn.cu), held on the CPU.
 
 The kernels run only on the card; what they compute per block is fixed by
 pure functions of the wrappers: ``ops.fps.block_layout`` (points a thread,
-threads, shared-memory rest) and ``ops.ballquery.centers_per_block``, and
-the ball query's schedule (tiles in index order, per-chunk hit counts, a
-prefix over chunks, the block's exit once its centers are full) by
-``ops.ballquery.tiled_emulation``. Indices and counts must be equal, exactly,
-to the plain version and to the JAX package's reference.
+threads, shared-memory rest), ``ops.ballquery.centers_per_block`` and
+``ops.knn.layout`` (lanes a query, queries a thread, refs a tile); the ball
+query's schedule (tiles in index order, per-chunk hit counts, a prefix over
+chunks, the block's exit once its centers are full) by
+``ops.ballquery.tiled_emulation``; and the three-NN's (lanes scanning
+strided quads of each tile with strict '<' insertion, then the shuffle
+merge in (distance, index) order) by ``ops.knn.split_emulation``. Indices
+and counts must be equal, exactly, to the plain version and to the JAX
+package's reference; distances equal bit for bit to the plain version and
+within 1e-5 of the JAX package's (its reference expands |a|^2 - 2ab + |b|^2).
 """
 from __future__ import annotations
 
@@ -15,10 +20,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from mvpnet_tpu.ops import reference as jref
-from mvpnet_torch.ops import ballquery, fps, reference
+from mvpnet_tpu.ops.pallas import knn as pknn
+from mvpnet_torch.ops import KERNELS, ballquery, fps, reference
 from tests.test_torch_ops import H100_SHARED_BYTES
+
+knn = KERNELS["knn"]  # the brute three-NN wrapper module (ops.knn is the dispatched function)
 
 H100_SMS = 132
 
@@ -143,3 +152,89 @@ def test_fps_block_layout_longest_row():
     assert fps.route(longest, H100_SHARED_BYTES) == "fps"
     assert fps.route(longest + 1, H100_SHARED_BYTES) == "fps_perrow"
     assert fps.block_layout(longest) == (fps.BLOCK_POINTS, fps.BLOCK_THREADS, longest - 8192)
+
+
+# ---------------------------------------------------------------------------
+# Three-NN: the kernel's split schedule and its layout rule
+# ---------------------------------------------------------------------------
+
+
+def _knn_case(rng, case, n):
+    """(queries (2, 37, 3), refs (2, n, 3)): 37 queries end inside a block's
+    lane groups, and n = 301 inside a quad, a tile of 64 and a lane group."""
+    q = rng.uniform(-2, 2, size=(2, 37, 3)).astype(np.float32)
+    r = rng.uniform(-2, 2, size=(2, n, 3)).astype(np.float32)
+    if case == "duplicates":  # every ref twice, queries on refs: exact ties
+        r[:, n // 2 : 2 * (n // 2)] = r[:, : n // 2]
+        q[:, :5] = r[:, :5]
+    elif case == "sentinels":  # masked refs at the 1e9 sentinel
+        r[:, ::7] = reference.MASK_COORD
+    return q, r
+
+
+@pytest.mark.parametrize("case", ["plain", "duplicates", "sentinels"])
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("lanes", [1, 2, 8, 32])
+def test_knn_split_emulation_matches_plain_and_jax(rng, case, k, lanes):
+    """301 refs in tiles of 64 (tails of tiles, quads and lane groups), and 9
+    refs at one tile (fewer than lanes x k for every lanes > 1)."""
+    for n, tile in ((301, 64), (9, 12)):
+        q, r = _knn_case(rng, case, n)
+        got_d, got_i = knn.split_emulation(_t(q), _t(r), k, lanes, tile)
+        want_d, want_i = reference.knn(_t(q), _t(r), k)
+        assert torch.equal(got_d, want_d) and torch.equal(got_i, want_i), (n, tile)
+        if case == "sentinels" and n == 9:
+            continue  # fewer than k real refs: the JAX reference gives masked refs +inf, the port 1e9
+        j_d, j_i = jref.knn(jnp.asarray(q), jnp.asarray(r), k)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(j_i))
+        np.testing.assert_allclose(got_d.numpy(), np.asarray(j_d), atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["plain", "duplicates", "sentinels"])
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_knn_split_emulation_matches_jax_kernel(rng, monkeypatch, case, lanes):
+    """Against the Pallas kernel itself in interpret mode, on tiles of 16
+    queries and 128 refs, so its grid walks several of each."""
+    monkeypatch.setattr(pknn, "_TILE_M", 16)
+    monkeypatch.setattr(pknn, "_TILE_N", 128)
+    q, r = _knn_case(rng, case, 301)
+    with pltpu.force_tpu_interpret_mode():
+        want_d, want_i = pknn.knn_pallas(jnp.asarray(q), jnp.asarray(r), 3)
+    got_d, got_i = knn.split_emulation(_t(q), _t(r), 3, lanes, 64)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=1e-5)
+
+
+# FP1-FP4 of the chunk request (B=1), the train step (B=8) and the scene at
+# the high-resolution config (B=4): (batch, queries, refs)
+FP_SHAPES = [
+    (1, 8192, 1024), (1, 1024, 256), (1, 256, 64), (1, 64, 16),
+    (8, 8192, 1024), (8, 1024, 256), (8, 256, 64), (8, 64, 16),
+    (4, 102400, 8192), (4, 8192, 2048), (4, 2048, 512), (4, 512, 128),
+]
+
+
+@pytest.mark.parametrize("b,m,n", FP_SHAPES)
+@pytest.mark.parametrize("sms", [H100_SMS, 8])
+def test_knn_layout(b, m, n, sms):
+    """A layout the kernel takes: lanes a power of two up to MAX_LANES, each
+    with two quads of a tile (one on rows of a single quad); queries a thread
+    one of QUERIES_PER_THREAD; a tile of whole quads that holds the row up to
+    MAX_TILE. More lanes only while the card is short of threads, more
+    queries a thread only while it is not; and work on every SM at the
+    chunk's FP1 and FP2."""
+    lanes, per_thread, tile = knn.layout(b, m, n, sms)
+    assert lanes & (lanes - 1) == 0 and 1 <= lanes <= knn.MAX_LANES
+    assert per_thread in knn.QUERIES_PER_THREAD
+    assert tile % knn.QUAD == 0 and tile == min(knn.MAX_TILE, knn.QUAD * -(-n // knn.QUAD))
+    assert lanes == 1 or 2 * lanes * knn.QUAD <= tile
+    threads = b * m * lanes // per_thread
+    fill = sms * knn.FILL_WARPS * 32
+    assert lanes == 1 or per_thread == 1
+    if lanes > 1:  # the lanes before the last did not fill the card
+        assert threads // 2 < fill
+    blocks = b * -(-m // (knn.THREADS // lanes * per_thread))
+    if b == 1 and m in (8192, 1024) and sms == H100_SMS:
+        assert blocks >= sms
+    if (b, m, n) == (4, 102400, 8192) and sms == H100_SMS:  # the scene's FP1: several queries a thread
+        assert per_thread > 1 and lanes == 1

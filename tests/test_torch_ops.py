@@ -276,6 +276,70 @@ def test_dispatch_modes_on_cpu(rng):
     }
 
 
+def _op_calls(rng):
+    """Each public op on small CPU inputs, as a function of ``impl``."""
+    q, r = _t(_pts(rng, 2, 12)), _t(_pts(rng, 2, 64))
+    feat = _t(rng.normal(size=(2, 64, 5)).astype(np.float32))
+    prepared = ops.knn_prepare(r, impl="reference")
+    return {
+        "knn": lambda impl: ops.knn(q, r, 3, impl=impl),
+        "farthest_point_sample": lambda impl: ops.farthest_point_sample(r, 8, impl=impl),
+        "ball_query": lambda impl: ops.ball_query(q, r, 0.8, 4, impl=impl),
+        "three_nn_interpolate": lambda impl: ops.three_nn_interpolate(q, r, feat, impl=impl),
+        "knn_prepare": lambda impl: ops.knn_prepare(r, impl=impl).refs,
+        "knn_prepared": lambda impl: ops.knn_prepared(q, prepared, 3, impl=impl),
+    }
+
+
+OPS = ("knn", "farthest_point_sample", "ball_query", "three_nn_interpolate", "knn_prepare", "knn_prepared")
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_per_call_impl(rng, op):
+    """A call's impl= overrides the module's setting for that call alone:
+    "reference" equals set_impl("reference"), "cuda" on a CPU tensor raises,
+    and the module's setting is left as it was."""
+    call = _op_calls(rng)[op]
+    ops.set_impl("reference")
+    want = call(None)
+    ops.set_impl("cuda")
+    got = call("reference")
+    assert ops.get_impl() == "cuda"
+    for g, w in zip(*(x if isinstance(x, tuple) else (x,) for x in (got, want))):
+        assert torch.equal(g, w)
+    ops.set_impl("auto")
+    with pytest.raises(ValueError):
+        call("pallas")
+    with pytest.raises(RuntimeError):
+        call("cuda")
+    assert ops.get_impl() == "auto" and not any(ops.launch_counts().values())
+
+
+def test_knn_refs_coherent_is_a_hint(rng):
+    q, r = _t(_pts(rng, 2, 30)), _t(_pts(rng, 2, 200))
+    want = ops.knn(q, r, 3)
+    for impl in (None, "reference"):
+        got = ops.knn(q, r, 3, impl=impl, refs_coherent=True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_op_signatures_match_jax(op):
+    """The port's public ops take the JAX package's parameters, by name and
+    in order."""
+    import inspect
+
+    import mvpnet_tpu.ops as jops
+
+    assert list(inspect.signature(getattr(ops, op)).parameters) == list(inspect.signature(getattr(jops, op)).parameters)
+
+
+def test_get_impl_round_trips():
+    for name in ("reference", "cuda", "auto"):
+        ops.set_impl(name)
+        assert ops.get_impl() == name
+
+
 @pytest.mark.parametrize(
     "m,n,bucketed",
     [(8192, 96000, True), (256, 1 << 15, True), (255, 1 << 15, False), (8192, (1 << 15) - 1, False), (8192, 1024, False)],
@@ -303,6 +367,7 @@ def test_fusion_slicing_covers_refs(b, m, n, sms):
         lambda q, r: ballquery.ball_query(q, r[:, :4], 0.1, 8),  # more slots than points
         lambda q, r: knn_bucketed.knn(q, r, 3, mode="gated"),  # no such mode
         lambda q, r: fps.farthest_point_sample(r, 0),  # npoint below 1
+        lambda q, r: knn_brute.knn_at(q, r, 3, 1, 1, 64),  # a launch at a given layout needs the card
     ],
 )
 def test_wrappers_reject_bad_arguments(rng, call):
