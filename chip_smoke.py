@@ -77,16 +77,26 @@ Phases, each of which fails the run with a nonzero exit:
        (b) the gated kernels (rows 6 and 7) against their plain versions on
            the first batch's fusion inputs (sentinel pixels included) at the
            full shape, compared on the first 256 queries of each row, and
-           with masked refs, duplicate points and a batch of 2; each timed
-           beside the default fusion kernel (both modes) at that shape, and
-           FPS, ball query and three-NN (rows 2-4) at every level of the
-           step's forward; row
-           6's 8-row subgroup gate is also checked and timed at the scene
-           path's fusion shape in 5 (b);
+           with masked refs, duplicate points, a batch of 2 and the refs in
+           their order (refs_coherent), each at lanes 1 to 32 a query row and
+           at the layout rule's; their prep (morton.prepare_device, the
+           kernels of csrc/morton.cu) against its plain version, every
+           output, at both rows' tiles and with the refs in their order, and
+           its device launches a call (at most PREP_MAX_LAUNCHES, from
+           torch.profiler) beside the plain chain's; each timed beside the
+           default fusion kernel (both modes) at that shape, and FPS, ball
+           query and three-NN (rows 2-4) at every level of the step's
+           forward; row 6's tiles of 8192 refs are also checked and timed
+           at the scene path's fusion shape in 5 (b). The bound of a gated
+           search (rows 6, 7 and row 1's demand mode) counts the pairs its
+           inputs need (need_pairs), the pairs its gates let through beside
+           it;
        (c) the first step again from the same weights and batch with the
            fusion kNN on each variant (demand, gated, resident): each
-           launches its kernel once, with equal fusion indices and loss.
-Then it prints the {"kernels": [...]} line (seven kernels: their launches,
+           launches its kernel once (and the gated ones their prep once),
+           with equal fusion indices and loss.
+Then it prints the {"kernels": [...]} line (seven kernels and the prep of
+rows 6 and 7, "morton_prep": their launches,
 times and bounds on the scene path, the chunk path's under "chunk_path",
 the train path's under "train_path", knn_prepared's under "fused_path";
 rows 6 and 7 at the train shape, row 6's subgroup gate under "scene_path"),
@@ -125,6 +135,7 @@ PLAIN_REPS = 5
 # per request: fusion kNN once, FPS / ball query / three-NN once per level
 EXPECTED_LAUNCHES = {
     "knn_fusion": 1, "fps": 4, "fps_perrow": 0, "ball_query": 4, "knn": 4, "knn_gated": 0, "knn_resident": 0,
+    "morton_prep": 0,
 }
 # per scene forward at config #4: SA1's 102,400-point rows are too long for
 # shared memory and take the per-row FPS; SA2-SA4 the shared-memory one
@@ -143,7 +154,13 @@ TPU_KERNELS = {
     "fps_perrow": ("mvpnet_torch/csrc/fps.cu", "mvpnet_tpu/ops/pallas/fps.py:44"),
     "knn_gated": ("mvpnet_torch/csrc/knn_gated.cu", "mvpnet_tpu/ops/pallas/knn_bucketed.py:142"),
     "knn_resident": ("mvpnet_torch/csrc/knn_resident.cu", "mvpnet_tpu/ops/pallas/knn_bucketed.py:401"),
+    # the prep of rows 6 and 7 replaces jnp code outside any Pallas kernel
+    # (_prepare, :693; _unmap, :610)
+    "morton_prep": ("mvpnet_torch/csrc/morton.cu", "mvpnet_tpu/ops/pallas/knn_bucketed.py:693"),
 }
+# the gated kernels' prep (morton.prepare_device): device launches a call at
+# most (csrc/morton.cu's eight)
+PREP_MAX_LAUNCHES = 10
 SCENE_SEED = 0
 SCENE_SHAPE = dict(num_points=300_000, num_frames=96, room=6.0)
 # (c): the scene path at reduced depth, where the plain versions run in time
@@ -192,6 +209,29 @@ def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
     instruction floor or the bytes over HBM bandwidth, the larger."""
     t_ops, t_bytes = ops / INSTR_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def need_pairs(torch, queries, kth, boxes, tile_n: int, rows_a_step: int = 4096) -> tuple[int, float]:
+    """(pairs, tiles a row) that a tiled exact search of ``queries`` (B, M,
+    3) needs, given each row's final k-th distance ``kth`` (B, M): for each
+    row, the tiles whose bound to the row's point is below its k-th
+    distance, at least one (the first tile is always read), each tile of
+    ``tile_n`` refs. ``boxes``: (lo, hi) pairs, each (B, Nt, 3); a tile's
+    bound is the least squared distance from the point to any of its boxes
+    (an empty box, (+inf, -inf), bounds nothing). The bound of the gated
+    searches (rows 1 in its demand mode, 6 and 7) counts these pairs: what
+    the inputs need, whatever the kernel's gates let through."""
+    B, M, _ = queries.shape
+    tiles = 0
+    for s in range(0, M, rows_a_step):
+        q = queries[:, s : s + rows_a_step, None, :].float()  # (B, m, 1, 3)
+        lb = None
+        for lo, hi in boxes:
+            gap = torch.clamp(torch.maximum(lo[:, None] - q, q - hi[:, None]), min=0.0)
+            d = (gap * gap).sum(-1)  # (B, m, Nt)
+            lb = d if lb is None else torch.minimum(lb, d)
+        tiles += int((lb < kth[:, s : s + rows_a_step, None]).sum(-1).clamp(min=1).sum())
+    return tiles * tile_n, tiles / (B * M)
 
 
 def cdist_topk(torch, q, r, k: int):
@@ -495,18 +535,31 @@ def fusion_case(torch, q, r, k, shape, subset=None, prepared=None) -> dict:
               f"{rows} queries of each row of the full run{', and to knn in full' if prepared is not None else ''}; "
               f"{modes[m]['ms']:.4f} ms, {modes[m]['scanned_fraction']:.4f} of the pairs scanned", flush=True)
     ops.reset_launch_counts()
-    run()
+    d_full = run()[0]
     if ops.launch_counts()["knn_fusion"] != 1:
         fail(f"knn_fusion [{shape}]: one call launched {ops.launch_counts()}")
+    need, tiles_a_row = B * M * N, None
+    if mode == "demand":  # the pairs these inputs need over the demand mode's tiles
+        from mvpnet_torch.ops import morton
+
+        qf = q.float()
+        p = prepared if prepared is not None else morton.prepare_refs(
+            r, morton.demand_tiles(M, N)[1], qf.amin(1, keepdim=True), qf.amax(1, keepdim=True))
+        bx = p.boxes
+        need, tiles_a_row = need_pairs(torch, q, d_full[..., k - 1], [(bx[..., 0:3], bx[..., 3:6]), (bx[..., 6:9], bx[..., 9:12])],
+                                       p.tile_n)
+        del p, bx
+        print(f"  knn_fusion demand [{shape}]: the inputs need {need} pairs ({tiles_a_row:.3f} tiles a row), "
+              f"the gates let {modes[mode]['scanned_pairs']} through", flush=True)
     return dict(
         name="knn_fusion", shape=shape, reps=reps,
         kern=run, check=lambda: tuple(x[:, :rows] for x in run()),
         plain=lambda: reference.knn(q_sub, r, k),
         plain_shape=f"{B}x{rows} queries (the first of each row) of the full search",
         library=lambda: cdist_topk(torch, q, r, k), library_once=B * M * N > YARDSTICK_ONCE_PAIRS,
-        ops=9.0 * modes[mode]["scanned_pairs"], ops_all_pairs=9.0 * B * M * N,
+        ops=9.0 * need, ops_scanned=9.0 * modes[mode]["scanned_pairs"], ops_all_pairs=9.0 * B * M * N,
         nbytes=4.0 * (3 * B * M + 3 * B * N + 2 * B * M * k),
-        extra={"mode": mode, "modes": modes},
+        extra={"mode": mode, "modes": modes, "need_pairs": need, "need_tiles_a_row": tiles_a_row},
     )
 
 
@@ -537,8 +590,9 @@ def measure(torch, case: dict) -> dict:
     }
     if "check" in case:
         row["plain_shape"] = case["plain_shape"]
-    if "ops_all_pairs" in case:  # a gated kernel: the bound counts the pairs its gate let through
+    if "ops_all_pairs" in case:  # a gated search: the bound counts the pairs its inputs need
         row["bound_ms_all_pairs"] = bound_ms(case["ops_all_pairs"], case["nbytes"])[0]
+        row["bound_ms_scanned"] = bound_ms(case["ops_scanned"], case["nbytes"])[0]
     row.update(case.get("extra", {}))
     print(f"  {case['name']} [{case['shape']}]: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain"
           f"{' [' + case['plain_shape'] + ']' if 'check' in case else ''}, "
@@ -751,24 +805,36 @@ def scene_kernel_cases(torch, cfg, pts, pix):
     return fusion, perrow
 
 
-def scanned_ops(torch, mod, q, r, k) -> float:
-    """f32 operations of one gated kernel call on these inputs: 9 for every
-    query-ref pair its gate let through (the kernel counts them)."""
-    scanned = torch.zeros(1, dtype=torch.int64, device=q.device)
-    mod.knn(q, r, k, scanned=scanned)
-    return 9.0 * scanned.item()
+def variant_tiles(name: str, M: int, N: int) -> tuple[int, int]:
+    """(tile_m, tile_n) of a gated kernel (knn_gated or knn_resident)."""
+    from mvpnet_torch.ops import KERNELS
+
+    mod = KERNELS[name]
+    return mod.tiles(M, N)[:2] if name == "knn_gated" else mod.tiles(M)
 
 
 def gated_case(torch, name, q, r, k, shape, reps=KERNEL_REPS) -> dict:
     """measure() case of a gated kernel (``name``: knn_gated or
-    knn_resident) at the full shape: it runs on every query (the visit order
-    depends on all of them), and the first FUSION_SUBSET queries of each row
-    are held against the plain version, which cannot sort full rows."""
-    from mvpnet_torch.ops import KERNELS
+    knn_resident) at the full shape, its prep included: it runs on every
+    query (the visit order depends on all of them), and the first
+    FUSION_SUBSET queries of each row are held against the plain version,
+    which cannot sort full rows. The bound counts the pairs these inputs
+    need over the prep's tiles (need_pairs, from the kernel's k-th
+    distances); the pairs the kernel's gates let through go beside it."""
+    from mvpnet_torch.ops import KERNELS, morton
 
     mod = KERNELS[name]
     B, M, N = q.shape[0], q.shape[1], r.shape[1]
     rows = torch.arange(FUSION_SUBSET, device=q.device)
+    scanned = torch.zeros(1, dtype=torch.int64, device=q.device)
+    d = mod.knn(q, r, k, scanned=scanned)[0]
+    tile_m, tile_n = variant_tiles(name, M, N)
+    r_sorted = morton.prepare(q, r, tile_m, tile_n).r_sorted
+    need, tiles_a_row = need_pairs(torch, q, d[..., k - 1], [morton.tile_bounds(r_sorted, tile_n)], tile_n)
+    del r_sorted, d
+    lanes, rows_a_block = mod.layout(B, M, tile_m, tile_n, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    print(f"  {name} [{shape}]: layout {lanes} lanes x {rows_a_block} rows; the inputs need {need} pairs "
+          f"({tiles_a_row:.3f} tiles a row), the gates let {scanned.item()} through", flush=True)
     return dict(
         name=name, shape=shape, reps=reps,
         kern=lambda: mod.knn(q, r, k),
@@ -776,8 +842,76 @@ def gated_case(torch, name, q, r, k, shape, reps=KERNEL_REPS) -> dict:
         plain=lambda: mod.plain(q, r, k, rows=rows),
         plain_shape=f"{B}x{FUSION_SUBSET} queries (the first of each row) of the full search",
         library=lambda: cdist_topk(torch, q, r, k), library_once=B * M * N > YARDSTICK_ONCE_PAIRS,
-        ops=scanned_ops(torch, mod, q, r, k), ops_all_pairs=9.0 * B * M * N,
+        ops=9.0 * need, ops_scanned=9.0 * scanned.item(), ops_all_pairs=9.0 * B * M * N,
         nbytes=4.0 * (3 * B * M + 3 * B * N + 2 * B * M * k),
+        extra={"need_pairs": need, "need_tiles_a_row": tiles_a_row, "scanned_pairs": scanned.item(),
+               "lanes": lanes, "rows_a_block": rows_a_block},
+    )
+
+
+def device_launches(torch, fn) -> list[str]:
+    """The names of the device activities (kernels, copies, fills) of one
+    call of ``fn``, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
+def prep_case(torch, q, r, k) -> dict:
+    """The gated kernels' prep (morton.prepare_device, csrc/morton.cu)
+    against its plain version (morton.prepare) at row 6's and row 7's tiles
+    and with the refs in their order, every output equal; its device
+    launches a call (at most PREP_MAX_LAUNCHES, each of csrc/morton.cu's
+    kernels among them) beside the plain chain's (prepare and unmap); the
+    measure() case at row 6's tiles."""
+    from mvpnet_torch.ops import knn_gated, knn_resident, morton
+
+    B, M, N = q.shape[0], q.shape[1], r.shape[1]
+
+    def tensors(p):
+        return tuple(x for x in p[:6] if x is not None)
+
+    for label, (tile_m, tile_n), sort_refs in [("row 6 tiles", knn_gated.tiles(M, N)[:2], True),
+                                               ("row 7 tiles", knn_resident.tiles(M), True),
+                                               ("row 6 tiles, refs in their order", knn_gated.tiles(M, N)[:2], False)]:
+        same(torch, f"morton_prep {label}", tensors(morton.prepare_device(q, r, tile_m, tile_n, sort_refs).plain_view()),
+             tensors(morton.prepare(q, r, tile_m, tile_n, sort_refs)))
+        print(f"  morton_prep {label} ({tile_m} x {tile_n}): equal", flush=True)
+    tile_m, tile_n = knn_gated.tiles(M, N)[:2]
+    names = device_launches(torch, lambda: morton.prepare_device(q, r, tile_m, tile_n))
+    symbols = ("morton_box_kernel", "morton_codes_kernel", "morton_sort_pass_kernel", "morton_gather_kernel",
+               "morton_order_kernel")
+    if len(names) > PREP_MAX_LAUNCHES or not all(any(s in n for n in names) for s in symbols):
+        fail(f"morton_prep: {len(names)} device launches a call, at most {PREP_MAX_LAUNCHES} with {symbols}: {names}")
+
+    def plain_chain():
+        p = morton.prepare(q, r, tile_m, tile_n)
+        d = torch.zeros((B, p.q_sorted.shape[1], k), device=q.device)
+        return morton.unmap(d, d.int(), p.q_order, p.r_order, M, N)
+
+    plain_names = device_launches(torch, plain_chain)
+    print(f"  morton_prep: {len(names)} device launches a call ({', '.join(names)}); the plain chain "
+          f"(prepare and unmap) {len(plain_names)}", flush=True)
+    Mt, Nt = -(-M // tile_m), -(-N // tile_n)
+    return dict(
+        name="morton_prep", shape=f"{B}x{M} queries and {N} refs, tiles {tile_m} x {tile_n}",
+        kern=lambda: morton.prepare_device(q, r, tile_m, tile_n),
+        check=lambda: tensors(morton.prepare_device(q, r, tile_m, tile_n).plain_view()),
+        plain=lambda: tensors(morton.prepare(q, r, tile_m, tile_n)), plain_shape="the same inputs",
+        library=None,
+        # the rank of each query tile's bounds: Nt^2 compares
+        ops=float(B * Mt * Nt * Nt),
+        # read the points, write the tiled points with their index, the ref
+        # boxes, the visit order and its bounds
+        nbytes=4.0 * (3 * B * (M + N) + 4 * B * (Mt * tile_m + Nt * tile_n) + 6 * B * Nt + 2 * B * Mt * Nt),
+        extra={"device_launches": len(names), "device_launch_names": names,
+               "plain_device_launches": len(plain_names)},
     )
 
 
@@ -1085,11 +1219,14 @@ def variant_steps(torch, ops, cfg, model, init_state, batch, loss_fn, metric_fn)
             counts = ops.launch_counts()
             want = dict(TRAIN_LAUNCHES, knn_fusion=0)
             want[kernel] = 1
+            if kernel != "knn_fusion":  # rows 6 and 7 prepare on the card
+                want["morton_prep"] = 1
             if counts != want:
                 fail(f"variant {variant}: kernel launches {counts}, expected {want}")
             fusion_idx = next(o for n, o in log if n == "knn")[1]
             out[variant] = (loss, fusion_idx)
             launches[kernel] = counts[kernel]
+            launches["morton_prep"] = counts["morton_prep"]
     finally:
         ops.set_fusion_variant("demand")
     loss0, idx0 = out["demand"]
@@ -1128,7 +1265,7 @@ def train_phase(torch):
     rows = train_kernel_rows(torch, cfg, first)
     for name in ("knn_fusion", "fps", "ball_query", "knn"):
         rows[name]["launches"] = summary["steps"][0]["launches_per_step"][name]
-    for name in ("knn_gated", "knn_resident"):
+    for name in ("knn_gated", "knn_resident", "morton_prep"):
         rows[name]["launches"] = summary["variants"]["launches"][name]
     del step, model, optimizer, batches, init_state, first
     torch.cuda.empty_cache()
@@ -1144,9 +1281,12 @@ def train_phase(torch):
 
 def train_kernel_rows(torch, cfg, batch) -> dict:
     """(b): rows 6 and 7 on the batch's fusion inputs (the synthetic depth's
-    holes are sentinel pixels), with masked refs, duplicate points and a
-    batch of 2, then timed beside row 1 at the train shape."""
-    from mvpnet_torch.ops import KERNELS, reference
+    holes are sentinel pixels), with masked refs, duplicate points, a batch
+    of 2 and the refs kept in their order (refs_coherent), each at every
+    layout of lanes 1 to 32 (rows a block as the layout rule gives them);
+    their prep against its plain version; then each timed beside row 1 at
+    the train shape."""
+    from mvpnet_torch.ops import KERNELS, knn_gated, reference
     from mvpnet_torch.train.step import prepare_batch
 
     with torch.no_grad():
@@ -1163,16 +1303,27 @@ def train_kernel_rows(torch, cfg, batch) -> dict:
         dup = pix.clone()
         dup[:, N // 2 : 2 * (N // 2)] = pix[:, : N // 2]
         rows = torch.arange(FUSION_SUBSET, device=pts.device)
+        cases = [("masked refs", pts, masked, True), ("duplicate points", pts, dup, True),
+                 ("batch of 2", pts[:2].contiguous(), pix[:2].contiguous(), True),
+                 ("refs in their order", pts, pix, False)]
         for name in ("knn_gated", "knn_resident"):
             mod = KERNELS[name]
-            for label, q, r in [("masked refs", pts, masked), ("duplicate points", pts, dup),
-                                ("batch of 2", pts[:2].contiguous(), pix[:2].contiguous())]:
-                got = tuple(x[:, :FUSION_SUBSET] for x in mod.knn(q, r, k))
-                same(torch, f"{name} {label}", got, mod.plain(q, r, k, rows=rows))
-                print(f"  {name} {label}: equal", flush=True)
+            tile_m = variant_tiles(name, M, N)[0]
+            for label, q, r, sort_refs in cases:
+                want = mod.plain(q, r, k, rows=rows, sort_refs=sort_refs)
+                lanes = 1
+                while lanes <= knn_gated.MAX_LANES:
+                    rows_a_block = min(tile_m, knn_gated.MAX_THREADS // lanes)
+                    got = mod.knn_at(q, r, k, lanes, rows_a_block, sort_refs=sort_refs)
+                    same(torch, f"{name} {label} lanes={lanes}", tuple(x[:, :FUSION_SUBSET] for x in got), want)
+                    lanes *= 2
+                got = mod.knn(q, r, k, sort_refs=sort_refs)  # the layout rule's
+                same(torch, f"{name} {label}", tuple(x[:, :FUSION_SUBSET] for x in got), want)
+                print(f"  {name} {label}: equal at lanes 1-{knn_gated.MAX_LANES} and at the layout rule's", flush=True)
         del masked, dup
         shape = f"{B}x{M} queries over {N} refs, k={k}"
         out = {name: measure(torch, gated_case(torch, name, pts, pix, k, shape)) for name in ("knn_gated", "knn_resident")}
+        out["morton_prep"] = measure(torch, prep_case(torch, pts, pix, k))
         out["knn_fusion"] = measure(torch, fusion_case(torch, pts, pix, k, shape, subset=FUSION_SUBSET))
         out.update(path_rows(torch, cfg, pts))  # rows 2-4 at the train step's shapes
     return out
@@ -1230,7 +1381,7 @@ def main() -> None:
             row["fused_path"] = path(fused_row)
     subgate["launches"] = 0  # the scene path's fusion kNN is row 1
     train_rows["knn_gated"]["scene_path"] = path(subgate)
-    rows += [train_rows["knn_gated"], train_rows["knn_resident"]]
+    rows += [train_rows["knn_gated"], train_rows["knn_resident"], train_rows["morton_prep"]]
     print(json.dumps({"slice": summary}), flush=True)
     print(json.dumps({"scene": scene_summary}), flush=True)
     print(json.dumps({"train": train_summary}), flush=True)

@@ -1,124 +1,89 @@
-// Exact kNN (k <= 8) over a resident Morton-sorted cloud, with an early exit.
+// Exact kNN (k <= 8) over a resident Morton-sorted cloud, with an early
+// exit: row 7.
 //
 // Replaces the Pallas kernel mvpnet_tpu/ops/pallas/knn_bucketed.py::
-// _vmem_kernel (pallas_call at knn_bucketed.py:493 in _vmem_call). Its
-// operands come from mvpnet_torch/ops/morton.py::prepare with 64-row query
-// tiles and 1024-ref tiles; the cloud holds at most 2^17 refs.
+// _vmem_kernel (pallas_call at knn_bucketed.py:493 in _vmem_call), which the
+// JAX package runs with use_vmem=True (ops.set_fusion_variant("resident")
+// here). Its operands come from mvpnet_torch/ops/morton.py::prepare_device
+// (csrc/morton.cu) with 64-row query tiles and 1024-ref tiles; the cloud
+// holds at most 2^17 refs.
 //
 // The TPU kernel keeps the whole sorted cloud in VMEM (fetched once per
 // batch row) and walks one query tile's ref tiles in ascending lower-bound
 // order in a while loop that ends at the first lb >= worst. An H100 block
-// has at most 227 KB of shared memory, too little for 2^17 x 12 B, but the
-// card's L2 is 50 MB: here one block of 64 threads owns one query tile and
-// reads the tiles it visits straight from the sorted cloud in device memory,
-// where the 1.5 MB a batch row holds stay L2-resident across the row's
-// blocks. All lanes of a warp read the same ref at once, a broadcast load.
-// There are no copies to double-buffer and nothing to drain.
+// has at most 227 KB of shared memory, too little for 2^17 x 16 B, but the
+// card's L2 is 50 MB, so the cloud (0.9 MB a batch row at the train shape,
+// at most 2 MB) stays L2-resident across a row's blocks, and each visited
+// tile comes from there into shared memory by cp.async.bulk,
+// double-buffered. The search is common.cuh's gated_search, shared with row
+// 6: lanes a query row, a warp gate on the tiles' boxes under the block's
+// early exit, ties by visit position. Unlike row 6 the first slot is
+// gated too (the while loop's first lb < +inf).
 //
-// Each thread holds one query row's top-k in registers and inserts with
-// strict '<' in visit order and column order (_merge_candidate's tie rule),
-// so results equal mvpnet_torch/ops/morton.py::gated_plain exactly.
-//
-// Bound on the H100: operations, 9 f32 operations per query-ref pair of the
-// visited tiles (chip_smoke.py counts them from the run's data).
+// Bound on the H100: instructions, 9 a (query, ref) pair the search needs,
+// at 33.5e12 lane-instructions a second (chip_smoke.py counts the pairs
+// these inputs need, and those the gates let through).
 #include "common.cuh"
 
 namespace {
 
+constexpr int kMaxThreads = 512;
+
 template <int K>
-__global__ void knn_resident_kernel(const float* __restrict__ q,
-                                    const float* __restrict__ r,
-                                    const int* __restrict__ order,
-                                    const float* __restrict__ lb, int Mt,
-                                    int Nt, int M_pad, int N_pad, int tile_m,
-                                    int tile_n, float* __restrict__ out_d,
-                                    int* __restrict__ out_i,
-                                    unsigned long long* __restrict__ scanned) {
+__global__ void __launch_bounds__(kMaxThreads)
+knn_resident_kernel(const float4* __restrict__ q4, const float4* __restrict__ r4, const int* __restrict__ order,
+                 const float* __restrict__ lb, const float* __restrict__ rbox, int M, int M_pad, int N_pad,
+                 int tile_m, int tile_n, int lanes, int rows, float* __restrict__ out_d, int* __restrict__ out_i,
+                 unsigned long long* __restrict__ scanned) {
+  extern __shared__ __align__(128) float4 buf[];  // two chunks of refs
+  __shared__ __align__(8) uint64_t bar[2];
   __shared__ float red[32];
-  const float inf = __int_as_float(0x7f800000);
-  const int mt = blockIdx.x;
-  const int b = blockIdx.y;
-  const bool active = (int)threadIdx.x < tile_m;
-  const size_t qrow = (size_t)b * M_pad + (size_t)mt * tile_m + threadIdx.x;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    qx = q[3 * qrow];
-    qy = q[3 * qrow + 1];
-    qz = q[3 * qrow + 2];
-  }
-  float bd[K];
-  int bi[K];
-#pragma unroll
-  for (int t = 0; t < K; ++t) {
-    bd[t] = inf;
-    bi[t] = 0;
-  }
-  const size_t list = ((size_t)b * Mt + mt) * Nt;
-  const float* rb = r + (size_t)b * N_pad * 3;
-  float worst = inf;
-  int t = 0;
-  for (; t < Nt && lb[list + t] < worst; ++t) {
-    const int tile_id = order[list + t];
-    const float* src = rb + (size_t)tile_id * tile_n * 3;
-    if (active) {
-      const int base = tile_id * tile_n;
-      for (int c = 0; c < tile_n; ++c) {
-        mvp_topk_insert<K>(bd, bi,
-                           mvp_sqdist(qx, qy, qz, __ldg(src + 3 * c), __ldg(src + 3 * c + 1), __ldg(src + 3 * c + 2)),
-                           base + c);
-      }
-    }
-    worst = mvp_block_max(active ? bd[K - 1] : -inf, red);
-  }
-  // every active row scanned the t tiles visited
-  if (scanned != nullptr && active && t > 0) atomicAdd(scanned, (unsigned long long)t * tile_n);
-  if (active) {
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      out_d[qrow * K + s] = bd[s];
-      out_i[qrow * K + s] = bi[s];
-    }
-  }
+  gated_search<K>(q4, r4, order, lb, rbox, M, M_pad, N_pad, tile_m, tile_n, lanes, rows, false, out_d, out_i,
+                  scanned, buf, bar, red);
 }
 
 template <int K>
-cudaError_t launch(const float* q, const float* r, const int* order,
-                   const float* lb, int B, int M_pad, int N_pad, int tile_m,
-                   int tile_n, float* d, int* i, unsigned long long* scanned,
-                   cudaStream_t st) {
-  const int Mt = M_pad / tile_m;
-  const int Nt = N_pad / tile_n;
-  const int threads = (tile_m + 31) / 32 * 32;
-  knn_resident_kernel<K><<<dim3(Mt, B), threads, 0, st>>>(
-      q, r, order, lb, Mt, Nt, M_pad, N_pad, tile_m, tile_n, d, i, scanned);
+cudaError_t launch(const float4* q4, const float4* r4, const int* order, const float* lb, const float* rbox,
+                   int B, int M, int M_pad, int N_pad, int tile_m, int tile_n, int lanes, int rows, float* d,
+                   int* i, unsigned long long* scanned, cudaStream_t st) {
+  const int chunk = tile_n < kGatedChunk ? tile_n : kGatedChunk;
+  const size_t shared = 2 * (size_t)chunk * sizeof(float4);
+  cudaError_t err = cudaFuncSetAttribute(knn_resident_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)shared);
+  if (err != cudaSuccess) return err;
+  const int parts = (tile_m + rows - 1) / rows;
+  const int threads = (rows * lanes + 31) / 32 * 32;
+  knn_resident_kernel<K><<<dim3(M_pad / tile_m * parts, B), threads, shared, st>>>(
+      q4, r4, order, lb, rbox, M, M_pad, N_pad, tile_m, tile_n, lanes, rows, d, i, scanned);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Operands as knn_gated's (csrc/knn_gated.cu): q (B, M_pad, 3), r (B, N_pad,
-// 3) f32 sorted and padded, order / lb (B, Mt, Nt). Writes out_d (B, M_pad,
-// k) f32 and out_i (B, M_pad, k) int32 sorted-ref indices. tile_m <= 1024.
-// When `scanned` is not null, the kernel adds to it the (query row, ref)
-// pairs it scanned. Returns cudaError_t.
-extern "C" int knn_resident(const float* q, const float* r, const int* order,
-                            const float* lb, int B, int M_pad, int N_pad,
-                            int tile_m, int tile_n, int k, float* out_d,
-                            int* out_i, unsigned long long* scanned,
-                            void* stream) {
+// Operands and outputs as knn_gated's (csrc/knn_gated.cu); the Python
+// wrapper takes at most 2^17 refs. `lanes` threads a query row (a power of two up to 32),
+// `rows` rows a block (rows x lanes <= 512). Writes out_d (B, M, k) f32
+// ascending squared distances and out_i (B, M, k) int32 original ref
+// indices, in the original query order. When `scanned` is not null, the
+// kernel adds to it the (real query row, ref) pairs its gates let through.
+// Returns cudaError_t.
+extern "C" int knn_resident(const float* q4, const float* r4, const int* order, const float* lb, const float* rbox,
+                         int B, int M, int M_pad, int N_pad, int tile_m, int tile_n, int k, int lanes, int rows,
+                         float* out_d, int* out_i, unsigned long long* scanned, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || M_pad <= 0) return cudaSuccess;
-  if (tile_m <= 0 || tile_m > 1024 || tile_n <= 0 || M_pad % tile_m || N_pad % tile_n)
-    return cudaErrorInvalidValue;
+  if (B <= 0 || M <= 0) return cudaSuccess;
+  if (!gated_args_ok(B, M, M_pad, N_pad, tile_m, tile_n, lanes, rows, kMaxThreads)) return cudaErrorInvalidValue;
+  const float4* q = reinterpret_cast<const float4*>(q4);
+  const float4* r = reinterpret_cast<const float4*>(r4);
   switch (k) {
-    case 1: return launch<1>(q, r, order, lb, B, M_pad, N_pad, tile_m, tile_n, out_d, out_i, scanned, st);
-    case 2: return launch<2>(q, r, order, lb, B, M_pad, N_pad, tile_m, tile_n, out_d, out_i, scanned, st);
-    case 3: return launch<3>(q, r, order, lb, B, M_pad, N_pad, tile_m, tile_n, out_d, out_i, scanned, st);
-    case 4: return launch<4>(q, r, order, lb, B, M_pad, N_pad, tile_m, tile_n, out_d, out_i, scanned, st);
-    case 5: return launch<5>(q, r, order, lb, B, M_pad, N_pad, tile_m, tile_n, out_d, out_i, scanned, st);
-    case 6: return launch<6>(q, r, order, lb, B, M_pad, N_pad, tile_m, tile_n, out_d, out_i, scanned, st);
-    case 7: return launch<7>(q, r, order, lb, B, M_pad, N_pad, tile_m, tile_n, out_d, out_i, scanned, st);
-    case 8: return launch<8>(q, r, order, lb, B, M_pad, N_pad, tile_m, tile_n, out_d, out_i, scanned, st);
+    case 1: return launch<1>(q, r, order, lb, rbox, B, M, M_pad, N_pad, tile_m, tile_n, lanes, rows, out_d, out_i, scanned, st);
+    case 2: return launch<2>(q, r, order, lb, rbox, B, M, M_pad, N_pad, tile_m, tile_n, lanes, rows, out_d, out_i, scanned, st);
+    case 3: return launch<3>(q, r, order, lb, rbox, B, M, M_pad, N_pad, tile_m, tile_n, lanes, rows, out_d, out_i, scanned, st);
+    case 4: return launch<4>(q, r, order, lb, rbox, B, M, M_pad, N_pad, tile_m, tile_n, lanes, rows, out_d, out_i, scanned, st);
+    case 5: return launch<5>(q, r, order, lb, rbox, B, M, M_pad, N_pad, tile_m, tile_n, lanes, rows, out_d, out_i, scanned, st);
+    case 6: return launch<6>(q, r, order, lb, rbox, B, M, M_pad, N_pad, tile_m, tile_n, lanes, rows, out_d, out_i, scanned, st);
+    case 7: return launch<7>(q, r, order, lb, rbox, B, M, M_pad, N_pad, tile_m, tile_n, lanes, rows, out_d, out_i, scanned, st);
+    case 8: return launch<8>(q, r, order, lb, rbox, B, M, M_pad, N_pad, tile_m, tile_n, lanes, rows, out_d, out_i, scanned, st);
     default: return cudaErrorInvalidValue;
   }
 }

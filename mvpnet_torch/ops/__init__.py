@@ -28,6 +28,10 @@ picks the fusion kernel, the counterpart of that file's ``_USE_DEMAND`` and
   * ``"gated"`` (``_USE_DEMAND = False``): ``knn_gated`` (``csrc/knn_gated.cu``);
   * ``"resident"`` (``use_vmem=True``): ``knn_resident``
     (``csrc/knn_resident.cu``), at most 2^17 refs.
+The last two prepare their operands on the card (``morton.prepare_device``,
+``csrc/morton.cu``, counted as ``"morton_prep"``) and break exact ties by
+their visit order, so ``knn``'s ``refs_coherent`` (keep the refs in their
+order) can change which of two equal refs they return, as in JAX.
 
 ``knn_prepare`` prepares a large cloud on the card once (Morton sort,
 tile boxes) and ``knn_prepared`` then runs the fusion kernel's demand mode
@@ -48,6 +52,7 @@ from mvpnet_torch.ops import knn as _knn
 from mvpnet_torch.ops import knn_bucketed as _knn_bucketed
 from mvpnet_torch.ops import knn_gated as _knn_gated
 from mvpnet_torch.ops import knn_resident as _knn_resident
+from mvpnet_torch.ops import morton as _morton
 from mvpnet_torch.ops import reference as _ref
 from mvpnet_torch.ops.reference import group_points  # noqa: F401
 
@@ -66,6 +71,7 @@ KERNELS = {
     "knn": _knn,
     "knn_gated": _knn_gated,
     "knn_resident": _knn_resident,
+    "morton_prep": _morton,
 }
 
 
@@ -112,14 +118,14 @@ def _plain(t, impl: str | None = None) -> bool:
     return False
 
 
-def _knn_search(queries, refs, k, impl):
+def _knn_search(queries, refs, k, impl, refs_coherent=False):
     if _plain(queries, impl):
         return _ref.knn(queries, refs, k)
     if _knn_bucketed.supported(queries.shape[1], refs.shape[1]):
         if _fusion_variant == "gated":
-            return _knn_gated.knn(queries, refs, k)
+            return _knn_gated.knn(queries, refs, k, sort_refs=not refs_coherent)
         if _fusion_variant == "resident":
-            return _knn_resident.knn(queries, refs, k)
+            return _knn_resident.knn(queries, refs, k, sort_refs=not refs_coherent)
         return _knn_bucketed.knn(queries, refs, k)
     return _knn.knn(queries, refs, k)
 
@@ -130,9 +136,9 @@ class _KnnFunction(torch.autograd.Function):
     dq = sum_k g * 2(q - r[idx]) and dr the index_add_ of -g (duplicates add)."""
 
     @staticmethod
-    def forward(ctx, queries, refs, k, impl, prepared=None):
+    def forward(ctx, queries, refs, k, impl, prepared=None, refs_coherent=False):
         if prepared is None or _plain(queries, impl):
-            d, idx = _knn_search(queries, refs, k, impl)
+            d, idx = _knn_search(queries, refs, k, impl, refs_coherent)
         else:  # refs prepared by knn_prepare: the fusion kernel's demand mode
             d, idx = _knn_bucketed.knn_prepared(queries, prepared, k)
         ctx.mark_non_differentiable(idx)
@@ -155,19 +161,24 @@ class _KnnFunction(torch.autograd.Function):
             dr = torch.zeros((B * N, 3), dtype=torch.float32, device=r.device)
             dr.index_add_(0, rows, -g.reshape(B * M * k, 3))
             dr = dr.reshape(B, N, 3).to(refs.dtype)
-        return dq, dr, None, None, None
+        return dq, dr, None, None, None, None
 
 
-def _knn_dispatch(queries, refs, k, impl=None):
-    return _KnnFunction.apply(queries, refs, k, impl)
+def _knn_dispatch(queries, refs, k, impl=None, refs_coherent=False):
+    return _KnnFunction.apply(queries, refs, k, impl, None, refs_coherent)
 
 
 def knn(queries, refs, k: int, ref_mask=None, impl: str | None = None, refs_coherent: bool = False):
     """k nearest neighbors; see reference.knn. Masked refs move to the 1e9
     sentinel (as the Pallas wrappers do) before either version runs.
-    ``refs_coherent`` is the JAX package's speed hint for its gated kernel;
-    it changes no result and is ignored here."""
-    return _knn_dispatch(queries, _ref.mask_points(refs, ref_mask), k, impl)
+    ``refs_coherent`` says the refs are spatially coherent in their order
+    (scanline pixel clouds): the "gated" and "resident" variants then skip
+    the refs' Morton sort, as the JAX package's gated kernel does
+    (``_prepare(sort_refs=False)``). Distances do not change, but those
+    variants break exact ties by visit order, so the index of one of two
+    equal refs can. The default fusion kernel and the plain versions take
+    the lower index whatever the order, and ignore it."""
+    return _knn_dispatch(queries, _ref.mask_points(refs, ref_mask), k, impl, refs_coherent)
 
 
 def farthest_point_sample(points, npoint: int, valid_mask=None, impl: str | None = None):

@@ -22,7 +22,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("knn", "knn_fusion", "knn_gated", "knn_resident", "fps", "ballquery")
+SOURCES = ("knn", "knn_fusion", "knn_gated", "knn_resident", "morton", "fps", "ballquery")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
@@ -117,10 +117,14 @@ _SIGNATURES = {
         _PTR, _PTR, _PTR, _PTR,
     ),
     ("knn_gated", "knn_gated"): (
-        _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
+        _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
     ),
     ("knn_resident", "knn_resident"): (
-        _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
+        _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
+    ),
+    ("morton", "morton_sort"): (_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR),
+    ("morton", "morton_tiles"): (
+        _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
     ),
     ("fps", "fps"): (_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR),
     ("fps", "fps_perrow"): (_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR),

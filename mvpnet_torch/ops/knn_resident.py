@@ -2,22 +2,24 @@
 
 Counterpart of ``mvpnet_tpu/ops/pallas/knn_bucketed.py::_knn_forward_demand``
 with ``use_vmem=True`` (``_vmem_kernel``); here
-``ops.set_fusion_variant("resident")``. Same preparation as the gated kernel
-(``ops.morton``) with 64-row query tiles and 1024-ref tiles; each query
+``ops.set_fusion_variant("resident")``. Same prep as the gated kernel
+(``morton.prepare_device``) with 64-row query tiles and 1024-ref tiles, and
+the same search body (``csrc/common.cuh``'s ``gated_search``); each query
 tile walks its ref tiles in ascending lower-bound order and stops at the
-first bound that cannot beat its worst k-th distance. It takes at most
-2^17 refs and raises above that, as the JAX package does.
+first bound that cannot beat its worst k-th distance, the first tile
+included. It takes at most 2^17 refs and raises above that, as the JAX
+package does.
 
-A CUDA tensor launches the kernel; a CPU tensor takes the plain version
-(``morton.gated_plain``). ``launches`` counts kernel launches.
+A CUDA tensor launches the kernels; a CPU tensor takes the plain version
+(``morton.gated_plain``). ``launches`` counts search-kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
 from mvpnet_torch.ops import morton
-from mvpnet_torch.ops.knn import check_args
-from mvpnet_torch.ops.knn_gated import run_sorted
+from mvpnet_torch.ops.knn import _sms, check_args
+from mvpnet_torch.ops.knn_gated import layout, run
 
 launches = 0
 
@@ -32,24 +34,31 @@ def check_size(N: int) -> None:
         raise ValueError(f"the resident kNN keeps the whole ref cloud resident: N={N} > {morton.VMEM_N_MAX}")
 
 
-def plain(queries: torch.Tensor, refs: torch.Tensor, k: int, rows=None):
+def plain(queries: torch.Tensor, refs: torch.Tensor, k: int, rows=None, sort_refs: bool = True):
     """The kernel's plain version (``morton.gated_plain`` at these tiles)."""
     check_size(refs.shape[1])
     tile_m, tile_n = tiles(queries.shape[1])
-    return morton.gated_plain(queries, refs, k, tile_m, tile_n, rows=rows)
+    return morton.gated_plain(queries, refs, k, tile_m, tile_n, rows=rows, sort_refs=sort_refs)
 
 
-def knn(queries: torch.Tensor, refs: torch.Tensor, k: int, scanned: torch.Tensor | None = None):
+def knn(queries: torch.Tensor, refs: torch.Tensor, k: int, scanned: torch.Tensor | None = None,
+        sort_refs: bool = True):
     """(B, M, 3), (B, N <= 2^17, 3) -> (B, M, k) f32 squared distances,
     ascending, and (B, M, k) int32 indices; ties follow the visit order.
-    ``scanned``: as ``knn_gated.knn``'s."""
-    global launches
+    ``scanned`` and ``sort_refs``: as ``knn_gated.knn``'s."""
     check_args(queries, refs, k)
     if not queries.is_cuda:
-        return plain(queries, refs, k)
+        return plain(queries, refs, k, sort_refs=sort_refs)
+    B, M, _ = queries.shape
+    return knn_at(queries, refs, k, *layout(B, M, *tiles(M), _sms(queries.device)), scanned, sort_refs)
+
+
+def knn_at(queries, refs, k: int, lanes: int, rows: int, scanned=None, sort_refs: bool = True):
+    """The prep and the kernel at a given layout, counted in ``launches``.
+    CUDA tensors only."""
+    global launches
     check_size(refs.shape[1])
     tile_m, tile_n = tiles(queries.shape[1])
-    out = run_sorted("knn_resident", queries, refs, k, tile_m, tile_n, (), scanned)
+    out = run("knn_resident", queries, refs, k, tile_m, tile_n, lanes, rows, scanned, sort_refs)
     launches += 1
     return out
-

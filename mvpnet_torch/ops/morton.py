@@ -1,14 +1,15 @@
-"""Morton sort and tile lower bounds of the gated fusion kNN (plain PyTorch).
+"""Morton sort and tile lower bounds of the gated fusion kNN.
 
 Counterpart of the jnp preparation in ``mvpnet_tpu/ops/pallas/knn_bucketed.py``
 (``_morton_code`` :99, ``_tile_bounds`` :116, ``_box_sqdist`` :130,
 ``_prepare`` :693, ``_inverse_perm`` :600, ``_unmap`` :610) with its
-constants (:58-83). It runs on the tensor's device; the gated kernels
-(``csrc/knn_gated.cu``, ``csrc/knn_resident.cu``) take ``prepare``'s output,
-the demand mode of the fusion kNN (``csrc/knn_fusion.cu``) that of
-``prepare_refs`` (``prepare_refs`` :887, the ref side, once per cloud) and
-``prepare_queries`` (``_knn_prepared_impl`` :935, the query side), which also
-bound each ref tile's sentinel refs.
+constants (:58-83), in plain PyTorch on the tensor's device; and its CUDA
+counterpart ``prepare_device`` (``csrc/morton.cu``), whose output the gated
+kernels (``csrc/knn_gated.cu``, ``csrc/knn_resident.cu``) take. The demand
+mode of the fusion kNN (``csrc/knn_fusion.cu``) takes ``prepare_refs``'s
+output (``prepare_refs`` :887, the ref side, once per cloud) and
+``prepare_queries``'s (``_knn_prepared_impl`` :935, the query side), which
+also bound each ref tile's sentinel refs.
 
   1. Queries and refs are sorted by a 30-bit Morton code over the queries'
      bounding box, so consecutive slabs are spatially compact.
@@ -19,13 +20,25 @@ bound each ref tile's sentinel refs.
 
 Both sorts are stable (``argsort(stable=True)``), as ``jnp.argsort`` is:
 equal Morton codes and the lb = 0 ties of overlapping boxes are common, and
-the visit order must be the JAX package's exactly.
+the visit order must be the JAX package's exactly. With ``sort_refs=False``
+(``ops.knn``'s ``refs_coherent``) the refs keep their order, as ``_prepare``
+does then.
+
+``prepare`` and ``unmap`` are the plain chain. On the card the gated kernels
+take ``prepare_device``'s operands instead: the same prep in the kernels of
+``csrc/morton.cu`` (query box, Morton codes, one stable radix sort of both
+sides' codes, the gather with the tile boxes, the bounds with each query
+tile's stable visit order), with each sorted point's original index in
+its 4th coordinate, so that the search kernel writes the original order
+itself and no ``unmap`` runs.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from mvpnet_torch.ops import _cuda
 
 TILE_M = 256
 TILE_N = 2048
@@ -107,8 +120,9 @@ class Prepared(NamedTuple):
 
     q_sorted (B, M_pad, 3) and r_sorted (B, N_pad, 3) Morton-sorted, padded,
     contiguous f32; q_order (B, M), r_order (B, N) sorted position -> original
-    index (int64); order (B, Mt, Nt) int32 ref tiles of each query tile in
-    visit order; lb_sorted (B, Mt, Nt) f32 their lower bounds."""
+    index (int64; r_order None when the refs keep their order); order (B, Mt,
+    Nt) int32 ref tiles of each query tile in visit order; lb_sorted (B, Mt,
+    Nt) f32 their lower bounds."""
 
     q_sorted: torch.Tensor
     r_sorted: torch.Tensor
@@ -120,9 +134,10 @@ class Prepared(NamedTuple):
     tile_n: int
 
 
-def prepare(queries: torch.Tensor, refs: torch.Tensor, tile_m: int, tile_n: int) -> Prepared:
-    """Morton-sort queries and refs (box from the queries), pad to tiles, and
-    rank each query tile's ref tiles by their lower bound."""
+def prepare(queries: torch.Tensor, refs: torch.Tensor, tile_m: int, tile_n: int, sort_refs: bool = True) -> Prepared:
+    """Morton-sort queries and refs (box from the queries; the refs only with
+    ``sort_refs``), pad to tiles, and rank each query tile's ref tiles by
+    their lower bound."""
     B, M, _ = queries.shape
     N = refs.shape[1]
     q = queries.float()
@@ -132,15 +147,100 @@ def prepare(queries: torch.Tensor, refs: torch.Tensor, tile_m: int, tile_n: int)
     lo = q.amin(dim=1, keepdim=True)
     hi = q.amax(dim=1, keepdim=True)
     q_order = torch.argsort(morton_code(q, lo, hi), dim=1, stable=True)
-    r_order = torch.argsort(morton_code(r, lo, hi), dim=1, stable=True)
     q_sorted = torch.gather(q, 1, q_order[..., None].expand(-1, -1, 3))
-    r_sorted = torch.gather(r, 1, r_order[..., None].expand(-1, -1, 3))
+    r_order, r_sorted = None, r
+    if sort_refs:
+        r_order = torch.argsort(morton_code(r, lo, hi), dim=1, stable=True)
+        r_sorted = torch.gather(r, 1, r_order[..., None].expand(-1, -1, 3))
     q_sorted = _pad_rows(q_sorted, -(-M // tile_m) * tile_m).contiguous()
     r_sorted = _pad_rows(r_sorted, -(-N // tile_n) * tile_n).contiguous()
     lb = box_sqdist(*tile_bounds(q_sorted, tile_m), *tile_bounds(r_sorted, tile_n))
     order = torch.argsort(lb, dim=-1, stable=True)  # nearest tiles first
     lb_sorted = torch.gather(lb, -1, order).contiguous()
     return Prepared(q_sorted, r_sorted, q_order, r_order, order.to(torch.int32).contiguous(), lb_sorted, tile_m, tile_n)
+
+
+class DevicePrepared(NamedTuple):
+    """``prepare_device``'s operands of the gated search kernels.
+
+    q4 (B, M_pad, 4) f32: the Morton-sorted queries padded with PAD_COORD,
+    each original query index's int32 bits in the 4th coordinate (-1 for
+    padding); r4 (B, N_pad, 4) f32: the sorted refs (with ``sort_refs``
+    False, the refs in their order) padded with PAD_COORD, each original ref
+    index in the 4th coordinate (padding: the last sorted ref's, which
+    ``unmap``'s clamp names); rbox (B, Nt, 6) f32 each ref tile's box over its
+    real refs (lo, hi; an empty box is (+inf, -inf)); order and lb_sorted as
+    ``Prepared``'s."""
+
+    q4: torch.Tensor
+    r4: torch.Tensor
+    rbox: torch.Tensor
+    order: torch.Tensor
+    lb_sorted: torch.Tensor
+    m: int
+    n: int
+    sort_refs: bool
+    tile_m: int
+    tile_n: int
+
+    def plain_view(self) -> Prepared:
+        """The same operands in ``prepare``'s layout (to hold them against it)."""
+
+        def index(x, n):  # the original indices the 4th coordinate carries
+            return x[:, :n, 3].contiguous().view(torch.int32).long()
+
+        return Prepared(
+            self.q4[..., :3].contiguous(), self.r4[..., :3].contiguous(), index(self.q4, self.m),
+            index(self.r4, self.n) if self.sort_refs else None, self.order, self.lb_sorted, self.tile_m, self.tile_n,
+        )
+
+
+# calls of prepare_device (each launches the kernels of csrc/morton.cu:
+# the box, the codes, SORT_PASSES passes of the radix sort, the gather and
+# the visit order)
+launches = 0
+SORT_TILE = 4096  # keys a block of the radix sort (csrc/morton.cu kSortTile)
+SORT_PASSES = 4
+
+
+@torch.no_grad()
+def prepare_device(queries: torch.Tensor, refs: torch.Tensor, tile_m: int, tile_n: int,
+                   sort_refs: bool = True) -> DevicePrepared:
+    """``prepare`` on the card, in csrc/morton.cu's kernels: the query box,
+    both sides' Morton codes and one stable radix sort of each row's keys
+    (the queries' first, then the refs'), then the gather with the tile
+    boxes and each query tile's bounds in visit order: eight launches. CUDA
+    tensors only."""
+    global launches
+    _cuda.check_xyz(queries, "queries")
+    _cuda.check_xyz(refs, "refs", queries.shape[0])
+    _cuda.same_device(queries, refs)
+    if not queries.is_cuda:
+        raise ValueError("prepare_device launches kernels: it needs CUDA tensors (prepare is the plain version)")
+    B, M, _ = queries.shape
+    N = refs.shape[1]
+    q = queries.float().contiguous()
+    r = refs.float().contiguous()
+    M_pad, N_pad = -(-M // tile_m) * tile_m, -(-N // tile_n) * tile_n
+    Mt, Nt = M_pad // tile_m, N_pad // tile_n
+    f32 = dict(dtype=torch.float32, device=q.device)
+    box = torch.empty((B, 6), **f32)
+    S = M + N if sort_refs else M
+    i32 = dict(dtype=torch.int32, device=q.device)
+    keys, perm = torch.empty((2, B, S), **i32), torch.empty((2, B, S), **i32)
+    hist = torch.empty((SORT_PASSES, B, -(-S // SORT_TILE), 256), **i32)
+    stream = _cuda.stream(q)
+    _cuda.launch(_cuda.function("morton", "morton_sort"), q.data_ptr(), r.data_ptr(), B, M, N, int(sort_refs),
+                 box.data_ptr(), keys.data_ptr(), perm.data_ptr(), hist.data_ptr(), stream)
+    q4, r4 = torch.empty((B, M_pad, 4), **f32), torch.empty((B, N_pad, 4), **f32)
+    qbox, rbox = torch.empty((B, Mt, 6), **f32), torch.empty((B, Nt, 6), **f32)
+    order = torch.empty((B, Mt, Nt), dtype=torch.int32, device=q.device)
+    lb_sorted = torch.empty((B, Mt, Nt), **f32)
+    _cuda.launch(_cuda.function("morton", "morton_tiles"), q.data_ptr(), r.data_ptr(), perm[0].data_ptr(), B, M, N,
+                 M_pad, N_pad, tile_m, tile_n, int(sort_refs), q4.data_ptr(), r4.data_ptr(), qbox.data_ptr(),
+                 rbox.data_ptr(), order.data_ptr(), lb_sorted.data_ptr(), stream)
+    launches += 1
+    return DevicePrepared(q4, r4, rbox, order, lb_sorted, M, N, sort_refs, tile_m, tile_n)
 
 
 class PreparedRefs(NamedTuple):
@@ -234,12 +334,14 @@ def inverse_perm(order: torch.Tensor) -> torch.Tensor:
 
 def unmap(d_s, i_s, q_order, r_order, M: int, N: int):
     """Sorted-space kernel outputs (B, M_pad, k) -> original query order and
-    original ref indices (int32)."""
+    original ref indices (int32; ``r_order`` None: the refs kept their order)."""
     B, _, k = d_s.shape
     d_s, i_s = d_s[:, :M], i_s[:, :M]
     # padding columns win only when a row has fewer than k real refs; the
     # clamp keeps the gather in range
-    i_orig = torch.gather(r_order, 1, i_s.long().clamp(0, N - 1).reshape(B, M * k)).reshape(B, M, k)
+    i_orig = i_s.long().clamp(0, N - 1)
+    if r_order is not None:
+        i_orig = torch.gather(r_order, 1, i_orig.reshape(B, M * k)).reshape(B, M, k)
     inv = inverse_perm(q_order)[..., None].expand(-1, -1, k)
     return torch.gather(d_s, 1, inv), torch.gather(i_orig, 1, inv).to(torch.int32)
 
@@ -252,7 +354,8 @@ def visit_columns(p: Prepared) -> torch.Tensor:
     return (p.order.long()[..., None] * p.tile_n + cols).reshape(B, Mt, Nt * p.tile_n)
 
 
-def gated_plain(queries, refs, k: int, tile_m: int, tile_n: int, rows=None, block_elems: int = 1 << 26):
+def gated_plain(queries, refs, k: int, tile_m: int, tile_n: int, rows=None, block_elems: int = 1 << 26,
+                sort_refs: bool = True):
     """Plain version of the gated kernels: what they return, computed without
     the gate.
 
@@ -262,12 +365,13 @@ def gated_plain(queries, refs, k: int, tile_m: int, tile_n: int, rows=None, bloc
     exactly, visit-order ties included: a skipped tile cannot beat the k-th
     distance, and an equal one loses the tie. ``rows`` (a 1-D index tensor)
     restricts the output to those original queries (the prepare still sees
-    every query, as the kernel does). Returns (B, R, k) f32 and int32."""
+    every query, as the kernel does); ``sort_refs``: ``prepare``'s. Returns
+    (B, R, k) f32 and int32."""
     from mvpnet_torch.ops.reference import sqdist
 
     B, M, _ = queries.shape
     N = refs.shape[1]
-    p = prepare(queries, refs, tile_m, tile_n)
+    p = prepare(queries, refs, tile_m, tile_n, sort_refs)
     rows = torch.arange(M, device=queries.device) if rows is None else rows.to(queries.device).long()
     pos = inverse_perm(p.q_order)[:, rows]  # (B, R) sorted rows of the chosen queries
     visit = visit_columns(p)
@@ -284,5 +388,7 @@ def gated_plain(queries, refs, k: int, tile_m: int, tile_n: int, rows=None, bloc
         d_sorted, at = torch.sort(d2, dim=-1, stable=True)
         i_sorted = torch.gather(cols, 2, at[..., :k]).clamp(0, N - 1)
         d_out[:, s:e] = d_sorted[..., :k]
-        i_out[:, s:e] = torch.gather(p.r_order, 1, i_sorted.reshape(B, -1)).reshape(B, e - s, k).to(torch.int32)
+        if p.r_order is not None:
+            i_sorted = torch.gather(p.r_order, 1, i_sorted.reshape(B, -1)).reshape(B, e - s, k)
+        i_out[:, s:e] = i_sorted.to(torch.int32)
     return d_out, i_out

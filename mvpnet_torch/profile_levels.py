@@ -11,11 +11,18 @@ synthetic training set, augmented from seed 0; the same in every run). It walks
 the levels as the forward does: FPS and ball query at SA1-SA4, the three-NN
 at FP1-FP4; FPS rows that ``ops.fps.route`` sends to ``fps_perrow`` are left
 out; then the fusion kNN of the forward over the path's pixel cloud: row 1
-in the mode its ``route`` picks, and on the train path rows 6 and 7 (the
-kernels of ``ops.set_fusion_variant``) on the same search, each held on the
-first 256 queries of each row. Each launch is held against its plain
-version, then timed ``--reps``
-times two ways: CUDA events around the wrapper's call (the host's enqueue
+in the mode its ``route`` picks (and in its demand mode where that is
+brute), and rows 6 and 7 (the kernels of ``ops.set_fusion_variant``) on the
+same search, row 6 on the train and scene paths and row 7 on the train path
+(the scene's cloud is past its cap), each held on the first 256 queries of
+each row. For each of them the device time of every kernel a call launches
+is also taken (``device_all_ms``: the prep's and the search's;
+``prep_device_ms`` is the difference); for rows 6 and 7, where the tree has
+``knn_at``, each layout of lanes 1 to 32 is timed (each equal to the
+wrapper's output), and where ``chip_smoke.need_pairs`` is found, the pairs
+the inputs need (``need_pairs``, the bound's count) go beside them. Each
+launch is held against its plain version, then timed ``--reps`` times two
+ways: CUDA events around the wrapper's call (the host's enqueue
 included; median), and the kernel's device time from ``torch.profiler``
 (mean a launch). Where ``ops.fps.block_layout`` exists, each FPS level is
 also timed on the other layouts of the block kernel that hold its row in
@@ -120,24 +127,28 @@ def levels(cfg, pts) -> list[dict]:
 
 def fusion_levels(cfg, pts, pix, path: str) -> list[dict]:
     """The fusion kNN of one forward on ``pts`` over the pixel cloud
-    ``pix``: row 1 in its route's mode, and on the train path rows 6 and 7 on
-    the same search; as ``levels``, with the device kernels (``symbols``) and
-    ``subset``, the queries of each row that ``plain`` gives (its plain
-    version cannot run the full search)."""
+    ``pix``: row 1 in its route's mode, and rows 6 (train and scene paths)
+    and 7 (train path) on the same search; as ``levels``, with the device
+    kernels (``symbols``) and ``subset``, the queries of each row that
+    ``plain`` gives (its plain version cannot run the full search)."""
     k = cfg.model.aggregation.k
     B, M, N = pts.shape[0], pts.shape[1], pix.shape[1]
     mode = KERNELS["knn_fusion"].route(B, M, N)
     sub = pts[:, :FUSION_SUBSET].contiguous()
     rows = torch.arange(FUSION_SUBSET, device=pts.device)
-    out = [dict(kernel="knn_fusion", level=mode, symbols=FUSION_SYMBOLS[mode],
-                plain=lambda: reference.knn(sub, pix, k))]
-    if path == "train":
-        out += [dict(kernel=name, level="variant", symbols=SYMBOLS[name],
-                     plain=lambda mod=KERNELS[name]: mod.plain(pts, pix, k, rows=rows))
-                for name in ("knn_gated", "knn_resident")]
+    fusion = KERNELS["knn_fusion"]
+    # row 1 in its route's mode, and where that is brute, in its demand mode
+    # too (with its plain-PyTorch prep: where the modes would cross)
+    out = [dict(kernel="knn_fusion", level=m, symbols=FUSION_SYMBOLS[m], plain=lambda: reference.knn(sub, pix, k),
+                run=lambda m=m: fusion.knn(pts, pix, k, mode=m))
+           for m in dict.fromkeys((mode, "demand"))]
+    variants = {"train": ("knn_gated", "knn_resident"), "scene": ("knn_gated",)}.get(path, ())
+    out += [dict(kernel=name, level="variant", symbols=SYMBOLS[name],
+                 plain=lambda mod=KERNELS[name]: mod.plain(pts, pix, k, rows=rows),
+                 run=lambda mod=KERNELS[name]: mod.knn(pts, pix, k))
+            for name in variants]
     for lv in out:
-        lv.update(shape=f"{B}x{M} queries over {N} refs, k={k}", subset=FUSION_SUBSET,
-                  run=lambda mod=KERNELS[lv["kernel"]]: mod.knn(pts, pix, k))
+        lv.update(shape=f"{B}x{M} queries over {N} refs, k={k}", subset=FUSION_SUBSET)
     return out
 
 
@@ -180,6 +191,65 @@ def device_ms(fn, symbols: tuple, reps: int, attempts: int = 3) -> float:
         else:
             return sum(means)
     raise SystemExit(f"profile_levels: {n} launches of {symbol} profiled for {reps} calls, {attempts} times")
+
+
+def device_all_ms(fn, reps: int) -> float:
+    """Device ms of every kernel, copy and fill a call of ``fn`` launches
+    (torch.profiler, the sum over ``reps`` calls over ``reps``)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_device_ms(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)) / reps
+
+
+def gated_tiles(name: str, M: int, N: int) -> tuple[int, int]:
+    mod = KERNELS[name]
+    return mod.tiles(M, N)[:2] if name == "knn_gated" else mod.tiles(M)
+
+
+def gated_layouts(name: str, pts, pix, k: int, want, reps: int) -> dict | None:
+    """Device ms of a gated kernel's search on each layout, lanes 1 to 32
+    with the rows a block its rule gives; None where the tree has no
+    ``knn_at``."""
+    mod, gated = KERNELS[name], KERNELS["knn_gated"]
+    if not hasattr(mod, "knn_at"):
+        return None
+    tile_m = gated_tiles(name, pts.shape[1], pix.shape[1])[0]
+    out = {}
+    lanes = 1
+    while lanes <= gated.MAX_LANES:
+        rows = min(tile_m, gated.MAX_THREADS // lanes)
+
+        def run(lanes=lanes, rows=rows):
+            return mod.knn_at(pts, pix, k, lanes, rows)
+
+        if not equal(run(), want):
+            raise SystemExit(f"profile_levels: {name} layout {lanes}x{rows} differs from the wrapper")
+        out[f"{lanes}x{rows}"] = device_ms(run, SYMBOLS[name], reps)
+        lanes *= 2
+    return out
+
+
+def need(name: str, pts, pix, k: int, got) -> dict | None:
+    """chip_smoke.need_pairs on the search's prep tiles (the gated kernels'
+    bound), with the pairs the kernel's gates let through; None where this
+    checkout's chip_smoke.py has no need_pairs."""
+    try:
+        from chip_smoke import need_pairs
+    except ImportError:
+        return None
+    from mvpnet_torch.ops import morton
+
+    tile_m, tile_n = gated_tiles(name, pts.shape[1], pix.shape[1])
+    r_sorted = morton.prepare(pts, pix, tile_m, tile_n).r_sorted
+    pairs, per_row = need_pairs(torch, pts, got[0][..., k - 1], [morton.tile_bounds(r_sorted, tile_n)], tile_n)
+    scanned = torch.zeros(1, dtype=torch.int64, device=pts.device)
+    KERNELS[name].knn(pts, pix, k, scanned=scanned)
+    return {"need_pairs": pairs, "need_tiles_a_row": per_row, "scanned_pairs": scanned.item()}
 
 
 def equal(got, want) -> bool:
@@ -255,8 +325,18 @@ def profile_path(path: str, reps: int) -> dict:
             row["layouts_device_ms"] = fps_layouts(*lv["args"], got, reps)
         elif lv["kernel"] == "knn":
             row["layouts_device_ms"] = knn_layouts(*lv["args"], got, reps)
+        if "symbols" in lv:  # a fusion search: its prep's device time apart
+            row["device_all_ms"] = device_all_ms(lv["run"], reps)
+            row["prep_device_ms"] = row["device_all_ms"] - row["device_ms"]
+        if lv["kernel"] in ("knn_gated", "knn_resident"):
+            k = cfg.model.aggregation.k
+            row["layouts_device_ms"] = gated_layouts(lv["kernel"], pts, pix, k, got, reps)
+            row["need"] = need(lv["kernel"], pts, pix, k, got)
         print(f"  {path} {row['kernel']} {row['level']} [{row['shape']}]: equal; events {row['events_ms']:.4f} ms, "
-              f"device {row['device_ms']:.4f} ms{'; layouts ' + str(row['layouts_device_ms']) if row.get('layouts_device_ms') else ''}",
+              f"device {row['device_ms']:.4f} ms"
+              f"{'; with its prep ' + format(row['device_all_ms'], '.4f') + ' ms' if 'device_all_ms' in row else ''}"
+              f"{'; layouts ' + str(row['layouts_device_ms']) if row.get('layouts_device_ms') else ''}"
+              f"{'; ' + str(row['need']) if row.get('need') else ''}",
               flush=True)
         rows.append(row)
     sums = {

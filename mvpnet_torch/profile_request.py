@@ -36,6 +36,8 @@ PORT_KERNELS = {
     "knn": ("knn_brute_kernel",),
     "knn_gated": ("knn_gated_kernel",),
     "knn_resident": ("knn_resident_kernel",),
+    "morton_prep": ("morton_box_kernel", "morton_codes_kernel", "morton_sort_pass_kernel", "morton_gather_kernel",
+                    "morton_order_kernel"),
 }
 FAMILIES = (
     ("port kernels", "|".join(s for symbols in PORT_KERNELS.values() for s in symbols)),

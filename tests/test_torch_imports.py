@@ -90,7 +90,9 @@ def test_ctypes_signatures_match_the_sources(lib, fn):
 
 
 def test_every_kernel_has_a_counted_wrapper():
-    assert set(ops.KERNELS) == {"knn_fusion", "fps", "fps_perrow", "ball_query", "knn", "knn_gated", "knn_resident"}
+    assert set(ops.KERNELS) == {
+        "knn_fusion", "fps", "fps_perrow", "ball_query", "knn", "knn_gated", "knn_resident", "morton_prep",
+    }
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
 

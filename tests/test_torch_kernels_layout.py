@@ -9,7 +9,11 @@ query's schedule (tiles in index order, per-chunk hit counts, a prefix over
 chunks, the block's exit once its centers are full) by
 ``ops.ballquery.tiled_emulation``; and the three-NN's (lanes scanning
 strided quads of each tile with strict '<' insertion, then the shuffle
-merge in (distance, index) order) by ``ops.knn.split_emulation``. Indices
+merge in (distance, index) order) by ``ops.knn.split_emulation``; and
+the gated fusion kNN's (rows 6 and 7: lanes a query row, the block's and
+the warp's gates, the merge in (distance, visit position) order) by
+``ops.knn_gated.split_emulation``, with its rule ``ops.knn_gated.layout``
+(lanes a query row, rows a block). Indices
 and counts must be equal, exactly, to the plain version and to the JAX
 package's reference; distances equal bit for bit to the plain version and
 within 1e-5 of the JAX package's (its reference expands |a|^2 - 2ab + |b|^2).
@@ -24,8 +28,9 @@ from jax.experimental.pallas import tpu as pltpu
 
 from mvpnet_tpu.ops import reference as jref
 from mvpnet_tpu.ops.pallas import knn as pknn
-from mvpnet_torch.ops import KERNELS, ballquery, fps, reference
-from tests.test_torch_ops import H100_SHARED_BYTES
+from mvpnet_tpu.ops.pallas import knn_bucketed as pgated
+from mvpnet_torch.ops import KERNELS, ballquery, fps, knn_gated, knn_resident, morton, reference
+from tests.test_torch_ops import GATED_ATOL, H100_SHARED_BYTES, _variant_case, small_gated_tiles  # noqa: F401
 
 knn = KERNELS["knn"]  # the brute three-NN wrapper module (ops.knn is the dispatched function)
 
@@ -238,3 +243,108 @@ def test_knn_layout(b, m, n, sms):
         assert blocks >= sms
     if (b, m, n) == (4, 102400, 8192) and sms == H100_SMS:  # the scene's FP1: several queries a thread
         assert per_thread > 1 and lanes == 1
+
+
+# ---------------------------------------------------------------------------
+# Rows 6 and 7: the gated search's schedule and its layout rule
+# ---------------------------------------------------------------------------
+
+# (lanes, rows a block) on the test's 32-row query tiles: one row a warp
+# lane-split 32 ways, the rule's range, and blocks that cut a tile in parts
+GATED_LAYOUTS = [(1, 32), (4, 8), (8, 16), (32, 8)]
+
+
+@pytest.mark.parametrize("case", ["plain", "sentinel", "masked", "duplicates"])
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("variant", ["gated", "resident"])
+def test_gated_split_emulation_matches_plain_and_jax(rng, small_gated_tiles, case, k, variant):
+    """The gated kernels' schedule (lanes, block and warp gates, the row's
+    insertion threshold, the merge by visit position) equals their plain
+    version bit for bit at every layout, visit-order ties included, and JAX's
+    _knn_forward (row 6) or _knn_forward_demand(use_vmem=True) (row 7) in
+    interpret mode index for index, on tiles of 32 rows and 64 refs; and the
+    warp gate skips pairs the tile gate lets through."""
+    q, r = _variant_case(rng, case)
+    with pltpu.force_tpu_interpret_mode():
+        if variant == "gated":
+            want_d, want_i = pgated._knn_forward(jnp.asarray(q), jnp.asarray(r), k)
+        else:
+            want_d, want_i = pgated._knn_forward_demand(jnp.asarray(q), jnp.asarray(r), k, use_vmem=True)
+    plain_d, plain_i = morton.gated_plain(_t(q), _t(r), k, 32, 64)
+    np.testing.assert_array_equal(plain_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(plain_d.numpy(), np.asarray(want_d), atol=GATED_ATOL, rtol=1e-6)
+    scanned = {}
+    for lanes, rows in GATED_LAYOUTS:
+        d, i, scanned[lanes] = knn_gated.split_emulation(_t(q), _t(r), k, 32, 64, lanes, rows,
+                                                         first_always=variant == "gated")
+        assert torch.equal(i, plain_i) and torch.equal(d, plain_d), (lanes, rows)
+    assert scanned[32] <= scanned[1] <= 2 * 100 * 1024
+    if case == "plain":
+        assert scanned[32] < scanned[1]
+
+
+@pytest.mark.parametrize(
+    "b,m,tile_m,tile_n",
+    [(8, 8192, 256, 2048), (8, 8192, 64, 1024), (4, 102400, 256, 8192), (1, 8192, 256, 2048), (2, 300, 64, 2048),
+     (1, 100, 100, 8192)],
+    ids=["train_row6", "train_row7", "scene_row6", "chunk", "small", "short_tile"],
+)
+@pytest.mark.parametrize("sms", [H100_SMS, 8])
+def test_gated_layout(b, m, tile_m, tile_n, sms):
+    """A layout the kernels take: lanes a power of two from LANES
+    (BIG_TILE_LANES on the 8192-ref tiles) up to MAX_LANES, doubled only
+    while the grid's threads do not fill the card; rows a block the tile's or
+    as many as MAX_THREADS hold."""
+    lanes, rows = knn_gated.layout(b, m, tile_m, tile_n, sms)
+    first = knn_gated.BIG_TILE_LANES if tile_n > morton.TILE_N else knn_gated.LANES
+    assert lanes & (lanes - 1) == 0 and first <= lanes <= knn_gated.MAX_LANES
+    assert rows == min(tile_m, knn_gated.MAX_THREADS // lanes) and rows * lanes <= knn_gated.MAX_THREADS
+    fill = knn_gated.SM_THREADS * sms
+    if lanes > first:  # doubled: the card was short of threads
+        assert b * m * lanes // 2 < fill
+    if lanes < knn_gated.MAX_LANES:
+        assert b * m * lanes >= fill
+    if sms == H100_SMS and (b, m) == (8, 8192):  # the train shape
+        assert (lanes, rows) == (8, 64)
+    if sms == H100_SMS and (b, m) == (4, 102400):  # the scene's tiles of 8192 refs
+        assert (lanes, rows) == (16, 32)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("case", ["plain", "sentinel", "masked"])
+def test_need_pairs_matches_a_brute_count(rng, case):
+    """chip_smoke.need_pairs (the gated searches' bound) against a count
+    over every (row, tile) in numpy: the tiles whose box lies nearer to the
+    row's point than its k-th distance, at least one a row; and every tile
+    holding one of the row's k nearest refs is among them."""
+    q, r = _variant_case(rng, case)
+    tile_n, k = 64, 3
+    p = morton.prepare(_t(q), _t(r), 32, tile_n)
+    lo, hi = morton.tile_bounds(p.r_sorted, tile_n)
+    d, i = morton.gated_plain(_t(q), _t(r), k, 32, tile_n)
+    kth = d[..., k - 1]
+    pairs, per_row = _chip_smoke().need_pairs(torch, _t(q), kth, [(lo, hi)], tile_n, rows_a_step=7)
+    want = 0
+    lo_n, hi_n, kth_n = lo.numpy(), hi.numpy(), kth.numpy()
+    tile_of = torch.empty_like(p.r_order)
+    tile_of.scatter_(1, p.r_order, torch.arange(p.r_order.shape[1]).expand_as(p.r_order) // tile_n)
+    for b in range(q.shape[0]):
+        for m in range(q.shape[1]):
+            n = 0
+            for t in range(lo_n.shape[1]):
+                gap = np.maximum(np.maximum(lo_n[b, t] - q[b, m], q[b, m] - hi_n[b, t]), 0.0)
+                n += float((gap * gap).sum()) < kth_n[b, m]
+            want += max(n, 1)
+            near = set(tile_of[b, i[b, m].long()].tolist())
+            if case == "plain":  # no sentinel among the neighbors: their tiles bound them
+                assert n >= len(near)
+    assert pairs == want * tile_n and per_row == pytest.approx(want / (q.shape[0] * q.shape[1]))

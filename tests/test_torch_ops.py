@@ -273,6 +273,7 @@ def test_dispatch_modes_on_cpu(rng):
     # plain versions launch nothing
     assert ops.launch_counts() == {
         "knn_fusion": 0, "fps": 0, "fps_perrow": 0, "ball_query": 0, "knn": 0, "knn_gated": 0, "knn_resident": 0,
+        "morton_prep": 0,
     }
 
 
@@ -548,6 +549,111 @@ def test_resident_plain_matches_jax_vmem_kernel(rng, small_gated_tiles, case):
     got_d, got_i = morton.gated_plain(_t(q), _t(r), 3, 32, 64)
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=GATED_ATOL, rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["plain", "sentinel", "duplicates"])
+def test_morton_prepare_unsorted_refs_matches_jax(rng, case):
+    """prepare(sort_refs=False) equals JAX's _prepare(sort_refs=False): the
+    refs in their order (no r_order), padded, the tile boxes over their real
+    points, the visit order and bounds."""
+    q, r = _variant_case(rng, case)
+    want = pgated._prepare(jnp.asarray(q), jnp.asarray(r), 32, 64, sort_refs=False)
+    got = morton.prepare(_t(q), _t(r), 32, 64, sort_refs=False)
+    assert want[3] is None and got.r_order is None
+    for name, w, g in [("q_sorted", want[0], got.q_sorted), ("r_sorted", want[1], got.r_sorted),
+                       ("q_order", want[2], got.q_order), ("order", want[4], got.order),
+                       ("lb_sorted", want[5], got.lb_sorted)]:
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    np.testing.assert_array_equal(got.r_sorted[:, :1000].numpy(), r)
+
+
+@pytest.mark.parametrize("sort_refs", [True, False])
+def test_morton_unmap_matches_jax(rng, sort_refs):
+    """The plain chain's un-mapping (sorted rows and columns back to the
+    original queries and refs, padding columns clamped) equals JAX's _unmap."""
+    q, r = _variant_case(rng, "plain")
+    p = morton.prepare(_t(q), _t(r), 32, 64, sort_refs)
+    M_pad, N_pad = p.q_sorted.shape[1], p.r_sorted.shape[1]
+    d_s = rng.uniform(size=(2, M_pad, 3)).astype(np.float32)
+    i_s = rng.integers(0, N_pad, size=(2, M_pad, 3)).astype(np.int32)
+    got_d, got_i = morton.unmap(_t(d_s), _t(i_s), p.q_order, p.r_order, 100, 1000)
+    r_order = None if p.r_order is None else jnp.asarray(p.r_order.numpy().astype(np.int32))
+    want_d, want_i = pgated._unmap(jnp.asarray(d_s), jnp.asarray(i_s), jnp.asarray(p.q_order.numpy().astype(np.int32)),
+                                   r_order, 100, 1000)
+    np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+
+
+def _coherent_tie_case(rng, n_refs=128):
+    """32 queries in [0, 0.1]^3 over refs in tiles of 64 where the point
+    (0.05, 0.05, 1.0) is ref 0 and ref 64: tile 0's other refs at (6, 6, 6),
+    tile 1's at x in [-5, -4], y = 0.05, z in [0.9, 1.0], so that tile 1 has
+    the lower bound (0.64 against 0.81); refs past 128 lie far away. With the
+    refs in their order the search visits tile 1 first and the tie goes to
+    ref 64; Morton-sorted, both land in one tile and ref 0 comes first."""
+    q = rng.uniform(0, 0.1, size=(1, 32, 3)).astype(np.float32)
+    r = rng.uniform(50, 60, size=(1, n_refs, 3)).astype(np.float32)
+    r[0, :64] = 6.0
+    r[0, 64:128, 0] = rng.uniform(-5, -4, size=64)
+    r[0, 64:128, 1] = 0.05
+    r[0, 64:128, 2] = rng.uniform(0.9, 1.0, size=64)
+    r[0, [0, 64]] = (0.05, 0.05, 1.0)
+    return q, r
+
+
+@pytest.mark.parametrize("variant", ["gated", "resident"])
+def test_refs_coherent_keeps_the_refs_order(rng, small_gated_tiles, monkeypatch, variant):
+    """refs_coherent / sort_refs=False skips the ref-side sort, as JAX's
+    knn(..., refs_coherent=True) does (_USE_DEMAND False for row 6,
+    use_vmem=True for row 7, both in interpret mode): the visit order and so
+    the winner of an exact tie change (ref 64, not 0), and the port's plain
+    version and the kernel's schedule follow it."""
+    monkeypatch.setattr(pgated, "_USE_DEMAND", False)
+    for name, value in [("TILE_M", 32), ("TILE_N", 64), ("VMEM_TILE_M", 32), ("VMEM_TILE_N", 64)]:
+        monkeypatch.setattr(morton, name, value)
+    q, r = _coherent_tie_case(rng)
+    mod = knn_gated if variant == "gated" else knn_resident
+    for sort_refs, winner in [(False, 64), (True, 0)]:
+        with pltpu.force_tpu_interpret_mode():
+            if variant == "gated":
+                want_d, want_i = pgated.knn(jnp.asarray(q), jnp.asarray(r), 1, refs_coherent=not sort_refs)
+            else:
+                want_d, want_i = pgated._knn_forward_demand(jnp.asarray(q), jnp.asarray(r), 1, sort_refs=sort_refs,
+                                                            use_vmem=True)
+        got_d, got_i = mod.knn(_t(q), _t(r), 1, sort_refs=sort_refs)  # a CPU tensor: the plain version
+        assert (np.asarray(want_i) == winner).all() and (got_i.numpy() == winner).all()
+        np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=GATED_ATOL, rtol=1e-6)
+        emu_d, emu_i, _ = knn_gated.split_emulation(_t(q), _t(r), 1, 32, 64, 4, 32, first_always=variant == "gated",
+                                                    sort_refs=sort_refs)
+        assert torch.equal(emu_i, got_i) and torch.equal(emu_d, got_d)
+
+
+@pytest.mark.parametrize("variant", ["gated", "resident"])
+def test_knn_refs_coherent_reaches_the_gated_variants(rng, monkeypatch, variant):
+    """ops.knn passes refs_coherent to the "gated" and "resident" variants at
+    a fusion-size search (256 queries over 2^15 refs), where it decides the
+    tie; the default variant takes the lower index either way."""
+    for name, value in [("TILE_M", 32), ("TILE_N", 64), ("VMEM_TILE_M", 32), ("VMEM_TILE_N", 64)]:
+        monkeypatch.setattr(morton, name, value)
+    q, r = _coherent_tie_case(rng, 1 << 15)
+    q = np.concatenate([q] * 8, axis=1)
+    try:
+        ops.set_fusion_variant(variant)
+        assert (ops.knn(_t(q), _t(r), 1, refs_coherent=True)[1] == 64).all()
+        assert (ops.knn(_t(q), _t(r), 1)[1] == 0).all()
+    finally:
+        ops.set_fusion_variant("demand")
+    assert (ops.knn(_t(q), _t(r), 1, refs_coherent=True)[1] == 0).all()
+
+
+def test_prepare_device_needs_the_card(rng):
+    q, r = _variant_case(rng, "plain")
+    with pytest.raises(ValueError, match="CUDA"):
+        morton.prepare_device(_t(q), _t(r), 32, 64)
+    for mod in (knn_gated, knn_resident):
+        with pytest.raises(ValueError, match="CUDA"):
+            mod.knn_at(_t(q), _t(r), 3, 4, 32)
+    assert ops.launch_counts()["morton_prep"] == 0
 
 
 def test_gated_plain_rows_subset(rng):
