@@ -95,8 +95,33 @@ Phases, each of which fails the run with a nonzero exit:
            fusion kNN on each variant (demand, gated, resident): each
            launches its kernel once (and the gated ones their prep once),
            with equal fusion indices and loss.
+  7. recipe: the paper's recipe through the entry points a user calls, at
+     full width on synthetic scenes (ScanNet is not in the repository):
+       (a) the 2D path: train_entry() at
+           configs/scannet/sem_seg_2d_unet_resnet34.yaml with
+           data.sampling=frames (UNet-ResNet34, bf16, B=32 frames of
+           120x160): 10 steps, each with a finite loss and no kernel launch;
+           BN statistics and parameters must move; ms per step, peak memory;
+       (b) the PointNet++ baselines: train_entry() at
+           configs/scannet/pn2ssg_xyz.yaml and pn2ssg_rgb.yaml (B=8,
+           N=8192; colors in the rgb batches only): 10 steps each, each
+           launching FPS, ball query and three-NN 4 times and the fusion kNN
+           never; the first step again from the same weights and batch
+           through the kernels and with set_impl("reference"): equal
+           index-op outputs and loss;
+       (c) the command lines, in outputs/chip_smoke_recipe (removed after):
+           cli.train_2d writes a checkpoint; cli.train_3d at the training
+           config with model.pretrained_2d there holds the 2D checkpoint's
+           net_2d before its first step, then trains a few steps;
+           cli.test_3d --export on that run prints a finite mIoU in [0, 1]
+           and writes one NYU40 file a validation scene, each forward
+           launching the chunk path's kernels; cli.test_3d on a pn2ssg_rgb
+           run (colors in every forward's batch, no fusion kNN); cli.test_2d
+           on the 2D run prints its results.
+     It prints the {"recipe": ...} line and its seconds.
 Then it prints the {"kernels": [...]} line (seven kernels and the prep of
-rows 6 and 7, "morton_prep": their launches,
+rows 6 and 7, "morton_prep": their launches, each row's launches on the
+recipe's paths under "recipe_launches",
 times and bounds on the scene path, the chunk path's under "chunk_path",
 the train path's under "train_path", knn_prepared's under "fused_path";
 rows 6 and 7 at the train shape, row 6's subgroup gate under "scene_path"),
@@ -144,6 +169,16 @@ SCENE_LAUNCHES = dict(EXPECTED_LAUNCHES, fps=3, fps_perrow=1)
 # the backward launches no kernel
 TRAIN_LAUNCHES = EXPECTED_LAUNCHES
 TRAIN_STEPS = 10
+# the recipe phase: per 2D pretraining step (the UNet alone) no kernel; per
+# PointNet++ baseline step or forward FPS / ball query / three-NN once per
+# level and no fusion kNN
+RECIPE_2D_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0)
+BASELINE_LAUNCHES = dict(EXPECTED_LAUNCHES, knn_fusion=0)
+CONFIG_2D = "configs/scannet/sem_seg_2d_unet_resnet34.yaml"
+BASELINE_CONFIGS = {"pn2ssg_xyz": "configs/scannet/pn2ssg_xyz.yaml", "pn2ssg_rgb": "configs/scannet/pn2ssg_rgb.yaml"}
+# ScanNet is not in the repository: every recipe run is on synthetic scenes
+SYNTHETIC = ["data.name=synthetic"]
+CLI_STEPS = 3
 # the fusion kNN's kernel for each ops.set_fusion_variant
 VARIANT_KERNEL = {"demand": "knn_fusion", "gated": "knn_gated", "resident": "knn_resident"}
 TPU_KERNELS = {
@@ -1116,11 +1151,14 @@ def fused_prepared_case(torch, model, cfg, scene) -> dict:
                        f"prepared cloud of {pixel_xyz.shape[1]} refs, k={k}", subset=FUSION_SUBSET, prepared=prepared)
 
 
-def train_steps(torch, ops, step, batches, model, optimizer, accum: int) -> dict:
+def train_steps(torch, ops, step, batches, model, optimizer, accum: int, launches=TRAIN_LAUNCHES,
+                label: str = "") -> dict:
     """(a): TRAIN_STEPS steps of train_entry's step; each must launch every
-    kernel of the path the expected number of times and give a finite loss;
-    BN statistics and parameters must move."""
-    want = {name: n * accum for name, n in TRAIN_LAUNCHES.items()}
+    kernel of the path the expected number of times (``launches`` a
+    microbatch) and give a finite loss; BN statistics and parameters must
+    move."""
+    want = {name: n * accum for name, n in launches.items()}
+    label = label or f"grad_accum={accum}"
     bn = [m for m in model.modules() if type(m).__name__ == "BatchNorm"]
     stats0 = [m.running_mean.clone() for m in bn]
     params0 = [p.detach().clone() for p in optimizer.params]
@@ -1140,19 +1178,19 @@ def train_steps(torch, ops, step, batches, model, optimizer, accum: int) -> dict
         wait_ms.append((t1 - t0) * 1e3)
         losses.append(loss)
         if counts != want:
-            fail(f"train step {i} (grad_accum={accum}): kernel launches {counts}, expected {want}")
+            fail(f"train step {i} ({label}): kernel launches {counts}, expected {want}")
         if not np.isfinite(loss):
-            fail(f"train step {i} (grad_accum={accum}): loss {loss}")
+            fail(f"train step {i} ({label}): loss {loss}")
     peak = torch.cuda.max_memory_allocated()
     moved_bn = sum(not torch.equal(m.running_mean, s0) for m, s0 in zip(bn, stats0))
     moved = sum(not torch.equal(p, p0) for p, p0 in zip(optimizer.params, params0))
     if moved_bn < len(bn) or moved < 0.99 * len(params0):
-        fail(f"grad_accum={accum}: {moved_bn}/{len(bn)} BN running means and {moved}/{len(params0)} parameters moved")
+        fail(f"{label}: {moved_bn}/{len(bn)} BN running means and {moved}/{len(params0)} parameters moved")
     B = next(iter(batch.values())).shape[0]
     warm = statistics.median(step_ms[1:])
-    print(f"  grad_accum={accum}: {TRAIN_STEPS} steps, launches {counts} a step, loss {losses[0]:.4f} -> "
+    print(f"  {label}: {TRAIN_STEPS} steps, launches {counts} a step, loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}, step ms median {warm:.2f} (first {step_ms[0]:.2f}), data wait median "
-          f"{statistics.median(wait_ms):.2f} ms, {B / (warm + statistics.median(wait_ms)) * 1e3:.2f} chunks/s, "
+          f"{statistics.median(wait_ms):.2f} ms, {B / (warm + statistics.median(wait_ms)) * 1e3:.2f} samples/s, "
           f"peak memory {peak / 2**30:.2f} GiB; {moved_bn}/{len(bn)} BN running means and "
           f"{moved}/{len(params0)} parameter tensors moved", flush=True)
     return {
@@ -1194,29 +1232,35 @@ def checkpoint_round_trip(torch, model, optimizer) -> None:
         shutil.rmtree(directory, ignore_errors=True)
 
 
-def variant_steps(torch, ops, cfg, model, init_state, batch, loss_fn, metric_fn) -> dict:
-    """(c): the first train step again from the same weights and batch, with
-    the fusion kNN on each variant: each launches its kernel once, and gives
-    the default route's fusion indices and loss."""
+def first_step_again(torch, ops, cfg, model, init_state, batch, loss_fn, metric_fn):
+    """One train step on ``batch`` from ``init_state``, reproducibly: the
+    dropout masks and the augmentation draws start again from their seeds,
+    with a fresh optimizer. Returns (loss, index-op log, launch counts)."""
     from mvpnet_torch.models.blocks import Dropout
     from mvpnet_torch.train.solver import build_optimizer
     from mvpnet_torch.train.step import make_train_step
 
-    train_step = make_train_step(cfg, loss_fn, metric_fn)
-    dropouts = [m for m in model.modules() if isinstance(m, Dropout)]
+    model.load_state_dict(init_state)
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = None
+    optimizer = build_optimizer(cfg.solver, [p for p in model.parameters() if p.requires_grad])
+    ops.reset_launch_counts()
+    with recording(ops) as log:
+        loss = float(make_train_step(cfg, loss_fn, metric_fn)(model, optimizer, batch, torch.Generator().manual_seed(0))["loss"])
+    torch.cuda.synchronize()
+    return loss, log, ops.launch_counts()
+
+
+def variant_steps(torch, ops, cfg, model, init_state, batch, loss_fn, metric_fn) -> dict:
+    """(c): the first train step again from the same weights and batch, with
+    the fusion kNN on each variant: each launches its kernel once, and gives
+    the default route's fusion indices and loss."""
     out, launches = {}, {}
     try:
         for variant, kernel in VARIANT_KERNEL.items():
-            model.load_state_dict(init_state)
-            for m in dropouts:  # the dropout masks start again from their seed
-                m.generator = None
-            optimizer = build_optimizer(cfg.solver, [p for p in model.parameters() if p.requires_grad])
             ops.set_fusion_variant(variant)
-            ops.reset_launch_counts()
-            with recording(ops) as log:
-                loss = float(train_step(model, optimizer, batch, torch.Generator().manual_seed(0))["loss"])
-            torch.cuda.synchronize()
-            counts = ops.launch_counts()
+            loss, log, counts = first_step_again(torch, ops, cfg, model, init_state, batch, loss_fn, metric_fn)
             want = dict(TRAIN_LAUNCHES, knn_fusion=0)
             want[kernel] = 1
             if kernel != "knn_fusion":  # rows 6 and 7 prepare on the card
@@ -1329,6 +1373,249 @@ def train_kernel_rows(torch, cfg, batch) -> dict:
     return out
 
 
+def reference_step(torch, ops, cfg, model, init_state, batch, loss_fn, metric_fn, launches: dict) -> dict:
+    """(b): the first step again from the same weights and batch, through
+    the kernels (``launches``) and through the plain versions (none): equal
+    index-op outputs and the same loss."""
+    out = {}
+    try:
+        for impl in ("auto", "reference"):
+            ops.set_impl(impl)
+            loss, log, counts = first_step_again(torch, ops, cfg, model, init_state, batch, loss_fn, metric_fn)
+            want = launches if impl == "auto" else dict.fromkeys(launches, 0)
+            if counts != want:
+                fail(f"{cfg.model.name} first step ({impl}): kernel launches {counts}, expected {want}")
+            out[impl] = (loss, log)
+    finally:
+        ops.set_impl("auto")
+    n_equal = compare_logs(torch, out["auto"][1], out["reference"][1], f"{cfg.model.name} first step")
+    loss, ref_loss = out["auto"][0], out["reference"][0]
+    if not np.isfinite(loss) or abs(loss - ref_loss) > 1e-6 * abs(ref_loss):
+        fail(f"first step: loss {loss} through the kernels, {ref_loss} through the plain versions")
+    print(f"  first step again through the plain versions: {n_equal} index-op outputs equal, "
+          f"loss {loss} and {ref_loss}", flush=True)
+    return {"index_op_outputs_equal": n_equal, "loss": loss, "reference_loss": ref_loss}
+
+
+def recipe_train(torch, ops, cfg, launches: dict, label: str, repeat: bool) -> dict:
+    """``train_entry`` at ``cfg``: TRAIN_STEPS steps through train_steps;
+    with ``repeat`` the first step again through the plain versions."""
+    from mvpnet_torch.entry import train_entry
+    from mvpnet_torch.models.build import loss_and_metrics
+
+    step, (model, optimizer, batches) = train_entry(cfg=cfg, seed=0)
+    try:
+        first = next(batches)
+        init_state = {k: v.clone() for k, v in model.state_dict().items()}
+        out = train_steps(torch, ops, step, batches, model, optimizer, 1, launches=launches, label=label)
+    finally:
+        batches.close()
+    out["batch"] = {k: [list(v.shape), str(v.dtype)] for k, v in first.items()}
+    if repeat:
+        out["reference_step"] = reference_step(torch, ops, cfg, model, init_state, first, *loss_and_metrics(cfg),
+                                               launches=launches)
+    del step, model, optimizer, batches, init_state, first
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def counting_forwards(torch, ops, whole_scene, what: str):
+    """Record each whole-scene forward's kernel launches and batch keys. The
+    first forward also runs again on its batch through the plain versions
+    (launching nothing): equal index-op outputs and the same argmax, so the
+    kernels are held at the shapes this path gives them."""
+    make_forward = whole_scene.make_forward
+    log: list = []
+    reference: dict = {}
+
+    def counted(model, cfg):
+        forward_fn = make_forward(model, cfg)
+
+        def inner(batch):
+            first = not log
+            ops.reset_launch_counts()
+            with recording(ops) if first else contextlib.nullcontext() as got_log:
+                out = forward_fn(batch)
+            torch.cuda.synchronize()
+            log.append((ops.launch_counts(), sorted(batch)))
+            if first:
+                reference.update(reference_forward(torch, ops, forward_fn, batch, out, got_log, what))
+            return out
+        return inner
+
+    whole_scene.make_forward = counted
+    try:
+        yield log, reference
+    finally:
+        whole_scene.make_forward = make_forward
+
+
+def reference_forward(torch, ops, forward_fn, batch, got, got_log, what: str) -> dict:
+    """``batch`` again through the plain versions; compared with the kernels' run."""
+    ops.set_impl("reference")
+    try:
+        ops.reset_launch_counts()
+        with recording(ops) as want_log:
+            want = forward_fn(batch)
+        torch.cuda.synchronize()
+        if any(ops.launch_counts().values()):
+            fail(f"{what} reference forward launched kernels: {ops.launch_counts()}")
+    finally:
+        ops.set_impl("auto")
+    n_equal = compare_logs(torch, got_log, want_log, what)
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    if agree <= 0.999:
+        fail(f"{what}: argmax agreement with the reference forward {agree}")
+    shapes = {n: [list(o.shape) for o in outs] for n, outs in reversed(got_log)}  # each op's first call
+    return {"index_op_outputs_equal": n_equal, "argmax_agreement": agree, "first_output_shapes": shapes}
+
+
+def cli_json(main, argv) -> dict:
+    """Run a CLI's main; its last line of standard output as JSON."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    lines = out.getvalue().strip().splitlines()
+    if not lines:
+        fail(f"{argv}: printed nothing")
+    return json.loads(lines[-1])
+
+
+def test_3d_run(torch, ops, cfg_path, overrides, launches: dict, export=None) -> dict:
+    """cli.test_3d over the synthetic val scenes: a finite mIoU in [0, 1],
+    each forward launching ``launches``, the first one held against the
+    plain versions, colors in the batch where the config ships them; with
+    ``export``, one NYU40 file a scene with a label a point."""
+    from mvpnet_torch.cli import test_3d
+    from mvpnet_torch.config import load_config
+    from mvpnet_torch.data.pipeline import build_dataset
+    from mvpnet_torch.eval import whole_scene
+
+    cfg = load_config(cfg_path, overrides)
+    argv = ["--cfg", cfg_path] + (["--export", export] if export else []) + overrides
+    what = f"test_3d {cfg.model.name}"
+    t0 = time.perf_counter()
+    with counting_forwards(torch, ops, whole_scene, what) as (log, reference):
+        results = cli_json(test_3d.main, argv)
+    seconds = time.perf_counter() - t0
+    if not log or not reference:
+        fail(f"{what}: {len(log)} forwards, reference check {reference}")
+    for i, (counts, keys) in enumerate(log):
+        if counts != launches:
+            fail(f"{what} forward {i}: kernel launches {counts}, expected {launches}")
+        if ("colors" in keys) != cfg.data.include_colors:
+            fail(f"{what} forward {i}: batch keys {keys}, include_colors={cfg.data.include_colors}")
+    miou = results.get("miou")
+    if miou is None or not np.isfinite(miou) or not 0.0 <= miou <= 1.0:
+        fail(f"{what}: results {results}")
+    out = {"miou": miou, "accuracy": results["accuracy"], "forwards": len(log), "launches_per_forward": log[0][0],
+           "reference_forward": reference, "seconds": seconds}
+    if export:
+        scenes = build_dataset(cfg.data, batch_size=1, training=False).scenes
+        want = {f"{s.name}.txt": len(s.points) for s in scenes}
+        got = {}
+        for f in sorted(os.listdir(export)):
+            with open(os.path.join(export, f)) as fh:
+                got[f] = sum(1 for _ in fh)
+        if got != want:
+            fail(f"test_3d --export wrote {got}, expected {want}")
+        out["export"] = got
+    print(f"  {what}: mIoU {miou:.4f}, {len(log)} forwards each launching {log[0][0]}, "
+          f"{seconds:.1f} s" + (f", export {out['export']}" if export else ""), flush=True)
+    print(f"  {what} first forward again through the plain versions: {reference['index_op_outputs_equal']} "
+          f"index-op outputs equal, argmax agreement {reference['argmax_agreement']}; first output shapes "
+          f"{reference['first_output_shapes']}", flush=True)
+    return out
+
+
+def recipe_cli(torch, ops, directory: str) -> dict:
+    """(c): train_2d -> train_3d warm-started from it -> test_3d --export;
+    train_3d and test_3d on pn2ssg_rgb; test_2d on the 2D run."""
+    from mvpnet_torch.cli import test_2d, train_2d, train_3d
+    from mvpnet_torch.entry import TRAIN_CONFIG
+
+    run = ["train.log_every=1", "train.val_steps=1"]
+    d2, d3, drgb = (os.path.join(directory, n) for n in ("sem_seg_2d", "mvpnet_3d", "pn2ssg_rgb"))
+    out = {}
+    t0 = time.perf_counter()
+    train_2d.main(["--cfg", CONFIG_2D, *SYNTHETIC, *run, f"train.max_steps={CLI_STEPS}", f"output_dir={d2}"])
+    ckpt_2d = os.path.join(d2, "checkpoints", str(CLI_STEPS - 1), "state.pt")
+    if not os.path.exists(ckpt_2d):
+        fail(f"train_2d wrote no checkpoint at {ckpt_2d}")
+    out["train_2d_s"] = time.perf_counter() - t0
+
+    # the warm start, read before any step (max_steps=0), then the run
+    warm = [*SYNTHETIC, *run, f"model.pretrained_2d={d2}/checkpoints", f"output_dir={d3}"]
+    model, _ = train_3d.main(["--cfg", TRAIN_CONFIG, *warm, "train.max_steps=0"])
+    state = torch.load(ckpt_2d, map_location="cpu", weights_only=True)["model"]
+    net_2d = {k: v.cpu() for k, v in model.net_2d.state_dict().items()}
+    bad = [k for k, v in net_2d.items() if not torch.equal(v, state["net_2d." + k])]
+    if bad or len(net_2d) != sum(k.startswith("net_2d.") for k in state):
+        fail(f"train_3d warm start: {len(bad)} of {len(net_2d)} net_2d tensors differ from the 2D checkpoint")
+    del model
+    print(f"  train_3d warm start: {len(net_2d)} net_2d tensors equal the 2D checkpoint's", flush=True)
+    t0 = time.perf_counter()
+    _, val = train_3d.main(["--cfg", TRAIN_CONFIG, *warm, f"train.max_steps={CLI_STEPS}"])
+    out["train_3d_s"] = time.perf_counter() - t0
+    out["train_3d_val_miou"] = val["miou"]
+    out["test_3d"] = test_3d_run(torch, ops, TRAIN_CONFIG, [*SYNTHETIC, f"output_dir={d3}"], EXPECTED_LAUNCHES,
+                                 export=os.path.join(directory, "export"))
+
+    rgb = BASELINE_CONFIGS["pn2ssg_rgb"]
+    train_3d.main(["--cfg", rgb, *SYNTHETIC, *run, f"train.max_steps={CLI_STEPS}", f"output_dir={drgb}"])
+    out["test_3d_pn2ssg_rgb"] = test_3d_run(torch, ops, rgb, [*SYNTHETIC, f"output_dir={drgb}"], BASELINE_LAUNCHES)
+
+    ops.reset_launch_counts()
+    results = cli_json(test_2d.main, ["--cfg", CONFIG_2D, *SYNTHETIC, f"output_dir={d2}"])
+    if not np.isfinite(results.get("miou", np.nan)) or any(ops.launch_counts().values()):
+        fail(f"test_2d: results {results}, launches {ops.launch_counts()}")
+    out["test_2d"] = {"miou": results["miou"], "accuracy": results["accuracy"]}
+    print(f"  test_2d: mIoU {results['miou']:.4f}, accuracy {results['accuracy']:.4f}", flush=True)
+    return out
+
+
+def recipe_phase(torch) -> dict:
+    """7: the paper's recipe: (a) the 2D pretraining path, (b) the
+    PointNet++ baselines, (c) the command lines end to end."""
+    import shutil
+
+    from mvpnet_torch import ops
+    from mvpnet_torch.config import load_config
+
+    t0 = time.perf_counter()
+    summary = {}
+    cfg = load_config(CONFIG_2D, SYNTHETIC + ["data.sampling=frames"])
+    summary["sem_seg_2d"] = recipe_train(torch, ops, cfg, RECIPE_2D_LAUNCHES, "sem_seg_2d", repeat=False)
+    for name, path in BASELINE_CONFIGS.items():
+        cfg = load_config(path, SYNTHETIC)
+        summary[name] = recipe_train(torch, ops, cfg, BASELINE_LAUNCHES, name, repeat=True)
+    if "colors" not in summary["pn2ssg_rgb"]["batch"] or "colors" in summary["pn2ssg_xyz"]["batch"]:
+        fail(f"pn2ssg batches: rgb {summary['pn2ssg_rgb']['batch']}, xyz {summary['pn2ssg_xyz']['batch']}")
+    directory = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke_recipe")
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        summary["cli"] = recipe_cli(torch, ops, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"  recipe phase: {summary['seconds']:.1f} s", flush=True)
+    return summary
+
+
+def recipe_launches(summary: dict, name: str) -> dict:
+    """A kernel's launches on each path of the recipe phase."""
+    return {
+        "sem_seg_2d_step": summary["sem_seg_2d"]["launches_per_step"][name],
+        "pn2ssg_xyz_step": summary["pn2ssg_xyz"]["launches_per_step"][name],
+        "pn2ssg_rgb_step": summary["pn2ssg_rgb"]["launches_per_step"][name],
+        "test_3d_mvpnet_3d_forward": summary["cli"]["test_3d"]["launches_per_forward"][name],
+        "test_3d_pn2ssg_rgb_forward": summary["cli"]["test_3d_pn2ssg_rgb"]["launches_per_forward"][name],
+    }
+
+
 def main() -> None:
     import torch
 
@@ -1366,6 +1653,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     print("train phase:", flush=True)
     train_summary, train_rows = train_phase(torch)
+    torch.cuda.empty_cache()
+    print("recipe phase:", flush=True)
+    recipe = recipe_phase(torch)
 
     def path(row):  # a row's numbers, nested under another row of the same kernel
         return {k: v for k, v in row.items() if k not in ("name", "route", "source", "replaces")}
@@ -1382,9 +1672,12 @@ def main() -> None:
     subgate["launches"] = 0  # the scene path's fusion kNN is row 1
     train_rows["knn_gated"]["scene_path"] = path(subgate)
     rows += [train_rows["knn_gated"], train_rows["knn_resident"], train_rows["morton_prep"]]
+    for row in rows:
+        row["recipe_launches"] = recipe_launches(recipe, row["name"])
     print(json.dumps({"slice": summary}), flush=True)
     print(json.dumps({"scene": scene_summary}), flush=True)
     print(json.dumps({"train": train_summary}), flush=True)
+    print(json.dumps({"recipe": recipe}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -1,9 +1,10 @@
-"""CLI: train the 3D fusion model on one GPU.
+"""CLI: train a 3D model (the fusion model or the PointNet++ baseline) on one GPU.
 
 Counterpart of ``python -m mvpnet_tpu.cli.train_3d``:
 
   python -m mvpnet_torch.cli.train_3d --cfg configs/scannet/mvpnet_3d_unet_resnet34_pn2ssg.yaml \
       data.name=synthetic train.max_steps=100 [solver.base_lr=2e-3 ...]
+  python -m mvpnet_torch.cli.train_3d --cfg configs/scannet/pn2ssg_rgb.yaml data.name=synthetic
 
 Checkpoints, ``log.txt`` and ``metrics.jsonl`` go to ``cfg.output_dir``; a
 run resumes from its latest checkpoint unless ``--no-resume``. ``--device
@@ -29,8 +30,8 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     cfg = load_config(args.cfg, args.opts)
-    if cfg.model.name != "mvpnet_3d":
-        raise SystemExit(f"train_3d runs the mvpnet_3d model (pn2ssg is not ported yet), got {cfg.model.name}")
+    if cfg.model.name not in ("mvpnet_3d", "pn2ssg"):
+        raise SystemExit(f"train_3d expects a 3D model, got {cfg.model.name}")
     return train(cfg, resume=not args.no_resume, device=args.device)
 
 

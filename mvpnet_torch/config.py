@@ -361,8 +361,6 @@ def to_dict(cfg: Any) -> Any:
 def save_config(cfg: Config, path: str) -> None:
     import yaml
 
-    # second train() in one process: setup_logger short-circuits (handlers
-    # already installed) and never creates the new output dir — make it here
     parent = os.path.dirname(path)
     if parent:
         os.makedirs(parent, exist_ok=True)

@@ -1,15 +1,17 @@
-"""Train-time augmentation of chunk batches, on the device.
+"""Train-time augmentation of chunk and frame batches, on the device.
 
-Counterpart of ``mvpnet_tpu/core/augment.py::augment_chunk``: a shared random
-z-rotation and x/y flips of the chunk points and the unprojected pixel
-clouds (both live in world space, so the fusion geometry stays coherent),
-and a brightness/contrast jitter of the images.
+Counterpart of ``mvpnet_tpu/core/augment.py``. Chunks (``augment_chunk``):
+a shared random z-rotation and x/y flips of the chunk points and the
+unprojected pixel clouds (both live in world space, so the fusion geometry
+stays coherent), and a brightness/contrast jitter of the images. Frames
+(``augment_frame``, 2D pretraining): a horizontal flip of image and label
+together, and the same jitter.
 
-Drawing is split from applying. ``sample_chunk_params`` draws every
-sample's angle, flip bits, brightness and contrast from a
-``torch.Generator``; ``apply_chunk_augment`` applies them. The JAX package
-draws from ``jax.random`` keys, which give other numbers: a test hands the
-same parameters to both application functions.
+Drawing is split from applying. ``sample_chunk_params`` and
+``sample_frame_params`` draw every sample's parameters from a
+``torch.Generator``; ``apply_chunk_augment`` and ``apply_frame_augment``
+apply them. The JAX package draws from ``jax.random`` keys, which give other
+numbers: a test hands the same parameters to both application functions.
 """
 from __future__ import annotations
 
@@ -78,8 +80,43 @@ def apply_chunk_augment(points, image_xyz, images, params: dict, *, z_rot: bool 
 
         points, image_xyz = flip(points), flip(image_xyz)
     if jitter > 0:
-        b = _leading(p["brightness"].to(images.dtype), images.ndim)
-        c = _leading(p["contrast"].to(images.dtype), images.ndim)
-        mean = images.mean(dim=(-3, -2), keepdim=True)
-        images = torch.clamp((images * b - mean) * c + mean, 0.0, 1.0)
+        images = _jitter(images, p)
     return points, image_xyz, images
+
+
+def _jitter(images, params: dict):
+    """(images * brightness - mean) * contrast + mean, clipped to [0, 1],
+    with the mean over H and W of each image and channel (``color_jitter``)."""
+    dev = images.device
+    b = _leading(params["brightness"].to(dev, images.dtype), images.ndim)
+    c = _leading(params["contrast"].to(dev, images.dtype), images.ndim)
+    mean = images.mean(dim=(-3, -2), keepdim=True)
+    return torch.clamp((images * b - mean) * c + mean, 0.0, 1.0)
+
+
+def sample_frame_params(gen: torch.Generator, batch: int, *, flip_prob: float = 0.5, jitter: float = 0.4) -> dict:
+    """Per-frame parameters (CPU tensors of shape (batch,)): a flip bool
+    (probability ``flip_prob``), brightness and contrast in
+    [1 - jitter, 1 + jitter)."""
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand(batch, generator=gen)
+
+    return {
+        "flip": torch.rand(batch, generator=gen) < flip_prob,
+        "brightness": uniform(1.0 - jitter, 1.0 + jitter),
+        "contrast": uniform(1.0 - jitter, 1.0 + jitter),
+    }
+
+
+def apply_frame_augment(images, labels, params: dict, *, flip_prob: float = 0.5, jitter: float = 0.4):
+    """images (B, H, W, 3) in [0, 1], labels (B, H, W); ``params`` from
+    ``sample_frame_params``. Returns both, augmented as ``augment_frame``
+    does each frame: the W axis of image and label reversed together where
+    the frame's flip bit is set, then the brightness/contrast jitter."""
+    if flip_prob > 0:
+        flip = params["flip"].to(images.device)
+        images = torch.where(_leading(flip, images.ndim), images.flip(2), images)
+        labels = torch.where(_leading(flip, labels.ndim), labels.flip(2), labels)
+    if jitter > 0:
+        images = _jitter(images, params)
+    return images, labels

@@ -1,4 +1,4 @@
-"""Chunk dataset and device prefetch.
+"""Chunk dataset, dataset factory and device prefetch.
 
 The port's counterpart of ``mvpnet_tpu/data/pipeline.py``:
   host (this module): chunk point sampling, greedy view selection, array
@@ -180,12 +180,13 @@ class ChunkDataset:
             yield collate([self.sample(rng) for _ in range(self.batch_size)])
 
 
-def build_dataset(cfg: DataConfig, *, batch_size: int, training: bool, seed: int = 0) -> ChunkDataset:
+def build_dataset(cfg: DataConfig, *, batch_size: int, training: bool, seed: int = 0):
     """``cfg.name == "synthetic"``: procedural scenes; ``"scannet"``:
     preprocessed scenes from ``cfg.root`` (``data/scannet.py``), loaded
-    lazily. Only chunk sampling is ported (``sampling == "chunks"``)."""
-    if cfg.sampling != "chunks":
-        raise NotImplementedError(f"sampling {cfg.sampling!r} is not ported yet (frame-level 2D data; ROADMAP.md Queue 1)")
+    lazily. ``cfg.sampling == "chunks"`` gives a ``ChunkDataset``,
+    ``"frames"`` a ``data/frames.FrameDataset`` (2D pretraining)."""
+    if cfg.sampling not in ("chunks", "frames"):
+        raise ValueError(f"unknown sampling mode {cfg.sampling!r}")
     if cfg.name == "synthetic":
         n_scenes = cfg.synthetic_scenes if training else max(cfg.synthetic_scenes // 2, 2)
         scenes = [
@@ -207,6 +208,10 @@ def build_dataset(cfg: DataConfig, *, batch_size: int, training: bool, seed: int
         scenes = load_scenes(cfg.root, split="train" if training else "val", lazy=True, capacity=cfg.cache_scenes)
     else:
         raise ValueError(f"unknown dataset {cfg.name!r}")
+    if cfg.sampling == "frames":
+        from mvpnet_torch.data.frames import FrameDataset
+
+        return FrameDataset(scenes, cfg, batch_size=batch_size, training=training, seed=seed)
     return ChunkDataset(scenes, cfg, batch_size=batch_size, training=training, seed=seed)
 
 

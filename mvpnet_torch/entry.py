@@ -11,9 +11,11 @@ with seeded random weights and returns ``(forward, (model, batch))``:
 model — and returns the 3D logits (B, N, num_classes) f32. ``batch`` is the
 numpy-seeded example batch of ``__graft_entry__._example_batch``.
 
-``train_entry`` builds the training path at the training config
-(``configs/scannet/mvpnet_3d_unet_resnet34_pn2ssg.yaml`` on synthetic
-scenes by default).
+``train_entry`` builds the training path of any model: by default the
+training config (``configs/scannet/mvpnet_3d_unet_resnet34_pn2ssg.yaml`` on
+synthetic scenes); with ``cfg`` at ``sem_seg_2d_unet_resnet34.yaml``
+(``data.sampling=frames``) the 2D pretraining path, at ``pn2ssg_xyz.yaml`` or
+``pn2ssg_rgb.yaml`` the PointNet++ baselines.
 
 All run on CUDA unless the caller passes ``device="cpu"``; with no CUDA and
 no explicit device they raise.
@@ -117,8 +119,10 @@ def train_entry(device=None, cfg: Config | None = None, seed: int = 0):
     """(step, (model, optimizer, batches)) for the training path.
 
     ``cfg`` defaults to the training config on synthetic scenes (full width,
-    bf16 compute, B=8, N=8192, V=3 views of 120x160); the model has seeded
-    random weights, in train mode, on ``device``. ``batches`` is the
+    bf16 compute, B=8, N=8192, V=3 views of 120x160); any other model of
+    ``build_model`` (``sem_seg_2d`` on frame batches, ``pn2ssg`` on chunks)
+    runs the same way. The model has seeded random weights, in train mode,
+    on ``device``. ``batches`` is the
     ``PrefetchIterator`` over the config's training set (``close()`` it).
     ``step()`` takes the next batch and runs one ``make_train_step`` step
     (augmentation drawn from a generator seeded with ``seed``) and returns

@@ -71,6 +71,8 @@ class Evaluator:
         self.cm = np.zeros((num_classes, num_classes), np.int64)
 
     def update(self, pred: np.ndarray, label: np.ndarray):
+        # in int64: the compact frames' int8 labels would wrap label * C
+        pred, label = np.asarray(pred, np.int64), np.asarray(label, np.int64)
         valid = label != self.ignore_label
         idx = label[valid] * self.num_classes + pred[valid]
         self.cm += np.bincount(idx, minlength=self.num_classes**2).reshape(self.num_classes, self.num_classes)
@@ -210,7 +212,7 @@ def evaluate_scenes(
     The space-sharded estimator (``mesh``) is not ported yet."""
     if mesh is not None:
         raise NotImplementedError(
-            "the space-sharded whole-scene estimator is not ported yet (ROADMAP.md Queue 1 item 10, multi-GPU)"
+            "the space-sharded whole-scene estimator is not ported yet (ROADMAP.md Queue 1, multi-GPU)"
         )
     model.eval()
     evaluator = Evaluator(cfg.data.num_classes, cfg.data.ignore_label)

@@ -7,7 +7,8 @@ TF-style (asymmetric for even sizes under stride 2), the 3x3/2 max-pool
 pads with -inf, and the decoder upsamples bilinearly with half-pixel
 centers to each skip's exact size.
 
-``load_torch_resnet34`` (the torchvision weight import) is not ported yet.
+``load_torch_resnet34`` imports torchvision ``resnet34`` weights into the
+encoder.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from torch import nn
 
 from mvpnet_torch.config import UNetConfig
 from mvpnet_torch.models.blocks import (
+    BatchNorm,
     ConvBNRelu,
     apply_norm,
     conv2d_same,
@@ -74,6 +76,87 @@ class ResNet34Encoder(nn.Module):
                 x = block(x)
             feats.append(x)
         return feats
+
+
+def load_torch_resnet34(encoder: ResNet34Encoder, state_dict) -> list[str]:
+    """Import torchvision ``resnet34`` weights into the encoder, in place.
+
+    ``state_dict`` maps torchvision's key names to tensors or numpy arrays
+    (a ``torch.load``-ed .pth state_dict, or an .npz with the same keys):
+
+      conv1/layerL.B.convN weights: OIHW, the port's layout, copied as they are;
+      bn weight/bias/running_mean/running_var -> the same names;
+      layerL.B.downsample.{0,1} -> stages[L-1][B].down.{conv,norm}.
+
+    Head keys (fc.*) and num_batches_tracked are ignored. Returns the list
+    of consumed keys; raises KeyError on a missing expected key, and
+    ValueError on a shape mismatch, on an encoder whose norm is not
+    BatchNorm, and on unconsumed non-head keys, as
+    ``mvpnet_tpu/models/unet.py::load_torch_resnet34`` does: a partial or
+    differently-shaped checkpoint fails loudly instead of loading silently
+    wrong."""
+    used: list[str] = []
+
+    def arr(name):
+        if name not in state_dict:
+            raise KeyError(f"torch resnet34 state_dict missing key {name!r}")
+        used.append(name)
+        return torch.as_tensor(state_dict[name])
+
+    def put(slot: torch.Tensor, name: str):
+        v = arr(name)
+        if tuple(slot.shape) != tuple(v.shape):
+            raise ValueError(f"{name}: shape {tuple(v.shape)} != encoder {tuple(slot.shape)}")
+        with torch.no_grad():
+            slot.copy_(v.to(slot.dtype))
+
+    def set_bn(norm, prefix):
+        if not isinstance(norm, BatchNorm):
+            raise ValueError(
+                f"{prefix}: torchvision weights carry BatchNorm stats but the "
+                f"encoder was built with norm={type(norm).__name__}"
+            )
+        for key in ("weight", "bias", "running_mean", "running_var"):
+            put(getattr(norm, key), f"{prefix}.{key}")
+
+    put(encoder.stem.weight, "conv1.weight")
+    set_bn(encoder.stem_norm, "bn1")
+    for s, stage in enumerate(encoder.stages):
+        for b, block in enumerate(stage):
+            p = f"layer{s + 1}.{b}"
+            put(block.conv1.conv.weight, f"{p}.conv1.weight")
+            set_bn(block.conv1.norm, f"{p}.bn1")
+            put(block.conv2.conv.weight, f"{p}.conv2.weight")
+            set_bn(block.conv2.norm, f"{p}.bn2")
+            if block.down is not None:
+                put(block.down.conv.weight, f"{p}.downsample.0.weight")
+                set_bn(block.down.norm, f"{p}.downsample.1")
+    # a structurally mismatched checkpoint (downsample weights where the
+    # encoder has none) must not load with weights silently dropped
+    leftover = [
+        k for k in state_dict
+        if k not in used and not k.startswith("fc.") and not k.endswith("num_batches_tracked")
+    ]
+    if leftover:
+        raise ValueError(
+            f"torch resnet34 state_dict has {len(leftover)} unconsumed "
+            f"non-head keys (encoder structure mismatch): {leftover[:8]}..."
+        )
+    return used
+
+
+def load_torch_resnet34_file(encoder: ResNet34Encoder, path: str) -> list[str]:
+    """``load_torch_resnet34`` from a .pth (``torch.load``, weights only) or
+    an .npz file."""
+    if path.endswith(".npz"):
+        import numpy as np
+
+        with np.load(path) as f:
+            return load_torch_resnet34(encoder, dict(f))
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return load_torch_resnet34(encoder, sd)
 
 
 def _resize_to(x_nhwc, hw):

@@ -1,22 +1,30 @@
 """Where the time of a training step goes, on the card.
 
-    python3 -m mvpnet_torch.profile_train [--steps 5] [--grad-accum 1] [--variant demand]
+    python3 -m mvpnet_torch.profile_train [--steps 5] [--grad-accum 1] [--variant demand] \
+        [--cfg configs/scannet/pn2ssg_xyz.yaml] [dotted overrides, e.g. data.sampling=frames]
 
-Counterpart of ``tools/step_profile.py``. Runs ``train_entry()`` at the
-training config (``configs/scannet/mvpnet_3d_unet_resnet34_pn2ssg.yaml`` on
-synthetic scenes: full width, bf16 compute, B=8, N=8192, V=3 views of
-120x160, random weights from seed 0), with the fusion kNN on ``--variant``.
+Counterpart of ``tools/step_profile.py``. Runs ``train_entry()`` at
+``--cfg`` with the dotted overrides, on synthetic scenes (``data.name=synthetic``
+comes first, so an override can change it): by default the training config
+(``configs/scannet/mvpnet_3d_unet_resnet34_pn2ssg.yaml``: full width, bf16
+compute, B=8, N=8192, V=3 views of 120x160, random weights from seed 0);
+``configs/scannet/sem_seg_2d_unet_resnet34.yaml data.sampling=frames``
+profiles the 2D pretraining step (B=32 frames), ``pn2ssg_xyz.yaml`` and
+``pn2ssg_rgb.yaml`` the PointNet++ baselines. The fusion kNN runs on
+``--variant``.
 Two warm-up steps, then ``--steps`` steps timed on the host clock (the wait
 for the next batch apart from the step, which ends in a synchronize), then
 the same number under ``torch.profiler``. Prints one JSON line: the card,
 the step and data-wait times, chunks/s, peak device memory, device busy ms
 per step, the device's idle share, device ms per step of each port kernel
 and by family (convolution, matmul, optimizer, copies, elementwise).
+``chunks_per_s`` counts the batch's samples: frames for ``sem_seg_2d``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import time
 
@@ -34,10 +42,13 @@ def main() -> None:
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--grad-accum", type=int, default=1)
     parser.add_argument("--variant", default="demand", choices=ops.FUSION_VARIANTS)
+    parser.add_argument("--cfg", default=TRAIN_CONFIG, help="YAML config (default: the training config)")
+    parser.add_argument("opts", nargs="*", help="dotted overrides, e.g. data.sampling=frames")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
-    cfg = load_config(TRAIN_CONFIG, TRAIN_OVERRIDES + [f"train.grad_accum={args.grad_accum}"])
+    overrides = TRAIN_OVERRIDES + [f"train.grad_accum={args.grad_accum}"] + args.opts
+    cfg = load_config(args.cfg, overrides)
     ops.set_fusion_variant(args.variant)
     step, (model, optimizer, batches) = train_entry(cfg=cfg)
     try:
@@ -66,7 +77,9 @@ def main() -> None:
     per_step = statistics.median(s + w for s, w in zip(step_ms, wait_ms))
     print(json.dumps({
         "card": card_line(),
-        "config": "configs/scannet/mvpnet_3d_unet_resnet34_pn2ssg.yaml (data.name=synthetic)",
+        "config": os.path.relpath(args.cfg),
+        "overrides": overrides,
+        "model": cfg.model.name,
         "batch_size": cfg.train.batch_size,
         "grad_accum": cfg.train.grad_accum,
         "fusion_variant": args.variant,

@@ -1,11 +1,13 @@
 """Training loop: build everything from cfg, iterate with periodic
 validation, checkpointing and logging.
 
-Counterpart of ``mvpnet_tpu/train/loop.py`` in one process on one device:
-iteration-based loop, chunk-level validation with best-mIoU tracking,
-auto-resume from the latest checkpoint, 2D warm start and freezing. The
-JAX loop's data-parallel and space-sharded meshes and its torchvision
-ResNet34 import raise ``NotImplementedError`` here (``ROADMAP.md`` Queue 1).
+Counterpart of ``mvpnet_tpu/train/loop.py`` in one process on one device,
+for every model of ``models/build.py`` (``sem_seg_2d`` on frame batches,
+``mvpnet_3d`` and ``pn2ssg`` on chunks): iteration-based loop, validation
+with best-mIoU tracking, auto-resume from the latest checkpoint, the
+torchvision ResNet34 encoder import, 2D warm start and freezing. The JAX
+loop's data-parallel and space-sharded meshes raise ``NotImplementedError``
+here (``ROADMAP.md`` Queue 1, multi-GPU).
 """
 from __future__ import annotations
 
@@ -27,16 +29,11 @@ from mvpnet_torch.utils.writer import MetricWriter
 
 def check_single_device(cfg: Config) -> None:
     """Raise on what the port does not run yet: meshes over several
-    devices, and the torchvision ResNet34 import."""
+    devices."""
     if cfg.mesh.space > 1 or cfg.mesh.data > 1:
         raise NotImplementedError(
             f"mesh data={cfg.mesh.data} space={cfg.mesh.space}: multi-GPU training is not ported yet "
             "(ROADMAP.md Queue 1, multi-GPU)"
-        )
-    if cfg.model.unet.torch_weights:
-        raise NotImplementedError(
-            "model.unet.torch_weights: the torchvision ResNet34 import is not ported yet "
-            "(ROADMAP.md Queue 1, load_torch_resnet34)"
         )
 
 
@@ -71,6 +68,11 @@ def train(cfg: Config, *, max_steps: int | None = None, resume: bool = True, dev
     logger.info("device: %s", torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev)
 
     model, loss_fn, metric_fn = build_model(cfg, seed=cfg.train.seed)
+    if cfg.model.unet.torch_weights and hasattr(model, "net_2d"):
+        from mvpnet_torch.models.unet import load_torch_resnet34_file
+
+        keys = load_torch_resnet34_file(model.net_2d.encoder, cfg.model.unet.torch_weights)
+        logger.info("imported torchvision resnet34 encoder from %s (%d keys)", cfg.model.unet.torch_weights, len(keys))
     model = model.to(dev)
     if cfg.model.pretrained_2d and hasattr(model, "net_2d"):
         loaded = warm_start_2d(model, cfg.model.pretrained_2d)

@@ -3,7 +3,7 @@
 Counterpart of ``mvpnet_tpu/train/step.py``: the host ships raw arrays, and
 everything geometric — dequantizing the compact wire format, lifting depth
 to world-space pixel clouds, train-time augmentation — happens on the
-device. The fusion kNN runs inside ``MVPNet3D.forward``.
+device. Frame batches of 2D pretraining take ``prepare_frame_batch``. The fusion kNN runs inside ``MVPNet3D.forward``.
 
 PyTorch runs eagerly, so the steps are plain functions over a model and an
 optimizer (``train.solver.Optimizer``) that update them in place.
@@ -13,8 +13,25 @@ from __future__ import annotations
 import torch
 
 from mvpnet_torch.config import Config
-from mvpnet_torch.core.augment import apply_chunk_augment, sample_chunk_params
+from mvpnet_torch.core.augment import apply_chunk_augment, apply_frame_augment, sample_chunk_params, sample_frame_params
 from mvpnet_torch.core.camera import unproject_views
+
+
+def prepare_frame_batch(cfg: Config, batch: dict, *, training: bool, generator: torch.Generator | None = None) -> dict:
+    """Frame-mode preparation (2D pretraining on ``data/frames.py``
+    batches: images (B,H,W,3), seg_label_2d (B,H,W)): dequantize uint8
+    images (/255) and int8 labels, augment in training (``generator`` as in
+    ``prepare_batch``), then add the views axis the 2D model and its loss
+    expect, (B, 1, H, W, ...). No depth mask: every labeled pixel counts."""
+    images = batch["images"]
+    if images.dtype == torch.uint8:
+        images = images.float() / 255.0
+    label = _labels(batch["seg_label_2d"])
+    if training and cfg.data.augment and generator is not None:
+        d = cfg.data
+        params = sample_frame_params(generator, images.shape[0], flip_prob=d.flip_prob, jitter=d.color_jitter)
+        images, label = apply_frame_augment(images, label, params, flip_prob=d.flip_prob, jitter=d.color_jitter)
+    return {"images": images[:, None], "seg_label_2d": label[:, None]}
 
 
 def prepare_batch(cfg: Config, batch: dict, *, training: bool, generator: torch.Generator | None = None) -> dict:
@@ -26,12 +43,18 @@ def prepare_batch(cfg: Config, batch: dict, *, training: bool, generator: torch.
     uint8 images (/255), uint16 millimeter depth, int16 millimeter points,
     int8 labels. Output: points, images, image_xyz (B,V,H,W,3), image_valid
     (B,V,H,W), and the labels (seg_label_2d set to the ignore label where the
-    depth is invalid).
+    depth is invalid). Optional per-point colors (B,N,3), for the xyz+RGB
+    baseline, pass through (uint8 /255).
+
+    A batch without ``depth`` is a frame batch and goes to
+    ``prepare_frame_batch``.
 
     With ``training``, ``cfg.data.augment`` and a ``generator`` (a CPU
     ``torch.Generator``), each sample's augmentation parameters are drawn
     from it and applied to points, image_xyz and images
     (``core/augment.py``)."""
+    if "depth" not in batch:
+        return prepare_frame_batch(cfg, batch, training=training, generator=generator)
     images = batch["images"]
     depth = batch["depth"]
     if images.dtype == torch.uint8:
@@ -57,6 +80,9 @@ def prepare_batch(cfg: Config, batch: dict, *, training: bool, generator: torch.
     }
     if "seg_label" in batch:  # absent in pure-inference batches (serving)
         out["seg_label"] = _labels(batch["seg_label"])
+    if "colors" in batch:  # per-point RGB of the xyz+RGB baseline (models/build.PN2Seg)
+        colors = batch["colors"]
+        out["colors"] = colors.float() / 255.0 if colors.dtype == torch.uint8 else colors
     if "seg_label_2d" in batch:
         # 2D supervision only on valid-depth pixels
         label = _labels(batch["seg_label_2d"])

@@ -13,20 +13,28 @@ from collections import defaultdict, deque
 
 
 def setup_logger(name: str = "mvpnet_torch", output_dir: str | None = None) -> logging.Logger:
+    """stdout logger, plus ``output_dir/log.txt`` when given. A later call
+    with another ``output_dir`` (a second run in one process) moves the file
+    handler there, so each run's lines land in its own directory."""
     logger = logging.getLogger(name)
-    if logger.handlers:
-        return logger
-    logger.setLevel(logging.INFO)
-    logger.propagate = False
     fmt = logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s")
-    sh = logging.StreamHandler(stream=sys.stdout)
-    sh.setFormatter(fmt)
-    logger.addHandler(sh)
+    if not logger.handlers:
+        logger.setLevel(logging.INFO)
+        logger.propagate = False
+        sh = logging.StreamHandler(stream=sys.stdout)
+        sh.setFormatter(fmt)
+        logger.addHandler(sh)
     if output_dir:
-        os.makedirs(output_dir, exist_ok=True)
-        fh = logging.FileHandler(os.path.join(output_dir, "log.txt"))
-        fh.setFormatter(fmt)
-        logger.addHandler(fh)
+        path = os.path.abspath(os.path.join(output_dir, "log.txt"))
+        files = [h for h in logger.handlers if isinstance(h, logging.FileHandler)]
+        if all(h.baseFilename != path for h in files):
+            for h in files:
+                logger.removeHandler(h)
+                h.close()
+            os.makedirs(output_dir, exist_ok=True)
+            fh = logging.FileHandler(path)
+            fh.setFormatter(fmt)
+            logger.addHandler(fh)
     return logger
 
 

@@ -183,7 +183,7 @@ def test_evaluate_scenes_results_and_export(models, scenes, tmp_path):
     np.testing.assert_array_equal(exported, whole_scene.remap_to_nyu40(pred, cfg.data.ignore_label))
     fused = whole_scene.evaluate_scenes(model, cfg, [scene], fused=True)
     assert 0.0 <= fused["miou"] <= 1.0 and set(fused) == set(results)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, multi-GPU"):
         whole_scene.evaluate_scenes(model, cfg, [scene], mesh=object())
 
 

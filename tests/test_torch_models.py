@@ -159,12 +159,21 @@ def test_load_jax_params_rejects_mismatch(pair, fault):
 
 
 def test_inference_only_surfaces_raise(pair):
-    """The models not ported yet raise; train-mode BN, once such a surface,
-    now runs (tests/test_torch_train.py holds it against flax)."""
+    """The 2D and PointNet++ models, once raises, now build with JAX's
+    attribute names (tests/test_torch_models_2d.py holds them against JAX);
+    an unknown name raises as JAX's does. Train-mode BN, once such a
+    surface, runs (tests/test_torch_train.py holds it against flax)."""
+    from mvpnet_torch.models.build import PN2Seg, SemSeg2D
+
     _, _, _, cfg, model, batch = pair
-    for name in ("sem_seg_2d", "pn2ssg"):
-        with pytest.raises(NotImplementedError):
-            build_model(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, name=name)))
+    xyz_only = dataclasses.replace(cfg.model.pn2, in_channels=0)
+    for name, kind, attr in (("sem_seg_2d", SemSeg2D, "net_2d"), ("pn2ssg", PN2Seg, "net_3d")):
+        mcfg = dataclasses.replace(cfg.model, name=name, pn2=xyz_only)
+        built, loss_fn, metric_fn = build_model(dataclasses.replace(cfg, model=mcfg))
+        assert isinstance(built, kind) and hasattr(built, attr) and built.training
+        assert callable(loss_fn) and callable(metric_fn)
+    with pytest.raises(ValueError, match="unknown model"):
+        build_model(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, name="pointnet")))
     bn = BatchNorm(4).train()
     y = bn(torch.arange(8.0).reshape(2, 4))
     assert torch.allclose(y, torch.tensor([[-1.0] * 4, [1.0] * 4]), atol=1e-5)

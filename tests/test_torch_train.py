@@ -480,12 +480,20 @@ def test_prefetch_packed_batches(scene):
 
 
 def test_build_dataset_splits_and_rejects_frames():
+    """Disjoint train and val scenes; frame sampling, once a raise, now
+    builds the frame dataset over the same scenes (tests/test_torch_frames.py
+    holds it against JAX's)."""
+    from mvpnet_torch.data.frames import FrameDataset
+
     cfg = _data_cfg()
     train, val = (pipeline.build_dataset(cfg, batch_size=1, training=t, seed=1) for t in (True, False))
     assert len(train.scenes) == cfg.synthetic_scenes and len(val.scenes) == 2
     assert not np.array_equal(train.scenes[0].points, val.scenes[0].points)
-    with pytest.raises(NotImplementedError):
-        pipeline.build_dataset(dataclasses.replace(cfg, sampling="frames"), batch_size=1, training=True)
+    frames = pipeline.build_dataset(dataclasses.replace(cfg, sampling="frames"), batch_size=3, training=True, seed=1)
+    assert isinstance(frames, FrameDataset)
+    assert all(np.array_equal(a.rgb, b.rgb) for a, b in zip(frames.scenes, train.scenes))
+    batch = next(iter(frames))
+    assert set(batch) == {"images", "seg_label_2d"} and batch["images"].shape == (3, 24, 32, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -561,12 +569,25 @@ def test_train_entry_on_cpu():
         batches.close()
 
 
-def test_single_device_surfaces_raise():
-    from mvpnet_torch.train.loop import check_single_device
+def test_single_device_surfaces_raise(tmp_path):
+    """Meshes over several devices still raise; model.unet.torch_weights,
+    once a raise, now imports the torchvision encoder before training."""
+    from mvpnet_torch.train.loop import check_single_device, train
+    from tests.test_torch_models_2d import _torchvision_sd
 
-    for over in (["mesh.space=2"], ["mesh.data=4"], ["model.unet.torch_weights=r34.pth"]):
+    for over in (["mesh.space=2"], ["mesh.data=4"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             check_single_device(load_config(TRAIN_CONFIG, over))
+    unet = dict(base_channels=8, stage_channels=(8, 16, 16, 32), stage_blocks=(1, 1, 1, 1))
+    sd = _torchvision_sd(np.random.default_rng(0), unet)
+    np.savez(tmp_path / "r34.npz", **sd)
+    cfg = load_config(TRAIN_CONFIG, TINY + [f"model.unet.torch_weights={tmp_path / 'r34.npz'}",
+                                            f"output_dir={tmp_path / 'run'}", "model.pretrained_2d="])
+    check_single_device(cfg)
+    model, _ = train(cfg, max_steps=0, device="cpu")
+    enc = model.net_2d.encoder
+    assert torch.equal(enc.stem.weight, torch.from_numpy(sd["conv1.weight"]))
+    assert torch.equal(enc.stages[3][0].down.norm.running_mean, torch.from_numpy(sd["layer4.0.downsample.1.running_mean"]))
 
 
 def test_cli_train_3d_loss_falls_and_resumes(tmp_path):
