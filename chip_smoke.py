@@ -117,8 +117,20 @@ Phases, each of which fails the run with a nonzero exit:
            and writes one NYU40 file a validation scene, each forward
            launching the chunk path's kernels; cli.test_3d on a pn2ssg_rgb
            run (colors in every forward's batch, no fusion kNN); cli.test_2d
-           on the 2D run prints its results.
-     It prints the {"recipe": ...} line and its seconds.
+           on the 2D run prints its results;
+       (d) the deployment path on the mvpnet_3d run of (c), before its
+           directory goes: cli.export_3d --batch-size 1 --check (the
+           torch.export artifact against the eager forward, JAX's margin
+           rule), the loaded program's mvpnet:: nodes (knn_fusion 1, fps 4,
+           ball_query 4, knn 4, no other), then cli.serve_3d on port 0:
+           /healthz, /meta, 5 /predict requests each launching the chunk
+           path's kernels and meeting the --check rule against the eager
+           forward, the first also against the plain versions, and a junk
+           body answered 400 with the server up after it; prints the
+           export seconds, the artifact's MB and the /predict and eager
+           forward host ms.
+     It prints the {"recipe": ...} line and its seconds, then the
+     {"serve": ...} line of (d).
 Then it prints the {"kernels": [...]} line (seven kernels and the prep of
 rows 6 and 7, "morton_prep": their launches, each row's launches on the
 recipe's paths under "recipe_launches",
@@ -179,6 +191,8 @@ BASELINE_CONFIGS = {"pn2ssg_xyz": "configs/scannet/pn2ssg_xyz.yaml", "pn2ssg_rgb
 # ScanNet is not in the repository: every recipe run is on synthetic scenes
 SYNTHETIC = ["data.name=synthetic"]
 CLI_STEPS = 3
+# /predict requests of the serve step, on example_batch seeds 0 to SERVE_REQUESTS - 1
+SERVE_REQUESTS = 5
 # the fusion kNN's kernel for each ops.set_fusion_variant
 VARIANT_KERNEL = {"demand": "knn_fusion", "gated": "knn_gated", "resident": "knn_resident"}
 TPU_KERNELS = {
@@ -1563,6 +1577,7 @@ def recipe_cli(torch, ops, directory: str) -> dict:
     out["train_3d_val_miou"] = val["miou"]
     out["test_3d"] = test_3d_run(torch, ops, TRAIN_CONFIG, [*SYNTHETIC, f"output_dir={d3}"], EXPECTED_LAUNCHES,
                                  export=os.path.join(directory, "export"))
+    out["serve"] = serve_phase(torch, ops, d3, os.path.join(directory, "artifact"))
 
     rgb = BASELINE_CONFIGS["pn2ssg_rgb"]
     train_3d.main(["--cfg", rgb, *SYNTHETIC, *run, f"train.max_steps={CLI_STEPS}", f"output_dir={drgb}"])
@@ -1575,6 +1590,199 @@ def recipe_cli(torch, ops, directory: str) -> dict:
     out["test_2d"] = {"miou": results["miou"], "accuracy": results["accuracy"]}
     print(f"  test_2d: mIoU {results['miou']:.4f}, accuracy {results['accuracy']:.4f}", flush=True)
     return out
+
+
+def http(url: str, body: bytes | None = None) -> tuple[int, bytes]:
+    """(status, body) of a GET, or of a POST of ``body``, on the local server."""
+    import urllib.error
+    import urllib.request
+
+    request = urllib.request.Request(url, data=body, method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(request, timeout=300) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def op_host_us(torch, reps: int = 500) -> dict:
+    """Host microseconds a call of the brute three-NN takes through its
+    public wrapper and op (``knn.knn`` -> ``torch.ops.mvpnet.knn``) and
+    through its CUDA implementation alone (``knn.launch``), at a request's
+    FP4 shape (64 queries over 16 refs, a launch far shorter than either):
+    ``reps`` calls, one synchronize, in turns (op, launch, launch, op)."""
+    from mvpnet_torch.ops import KERNELS
+
+    brute = KERNELS["knn"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, r = (torch.rand((1, n, 3), generator=g, device="cuda") for n in (64, 16))
+    calls = {"op": lambda: brute.knn(q, r, 3), "launch": lambda: brute.launch(q, r, 3)}
+    times = {name: [] for name in calls}
+    for name in ("op", "launch", "launch", "op"):
+        calls[name]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            calls[name]()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / reps * 1e6)
+    return times
+
+
+def serve_phase(torch, ops, run_dir: str, art: str) -> dict:
+    """(d): the deployment path on the recipe's mvpnet_3d run (the training
+    config, full width): cli.export_3d --batch-size 1 --check; the loaded
+    program's mvpnet:: nodes (each kernel of the chunk path, as often as a
+    request launches it, and no other); cli.serve_3d on port 0 in a thread:
+    /healthz, /meta equal to meta.json, SERVE_REQUESTS /predict requests on
+    example_batch seeds 0-4, each launching EXPECTED_LAUNCHES and meeting
+    the --check rule against the restored model's eager forward, the first
+    also against the plain versions' forward; junk gets 400 and /healthz
+    still answers. Host ms of a /predict round trip and of the eager forward
+    (the same batch's H2D copy, forward and D2H) in this process, and of the
+    handler's work without the HTTP hop (npz decode, the artifact's forward,
+    npz encode); the op layer's host cost a call (``op_host_us``)."""
+    import io
+    import threading
+
+    from mvpnet_torch.cli import export_3d, serve_3d, test_3d
+    from mvpnet_torch.config import load_config
+    from mvpnet_torch.entry import TRAIN_CONFIG, example_batch, to_device
+    from mvpnet_torch.eval.export_model import kernel_nodes, load_inference
+    from mvpnet_torch.train.step import prepare_batch
+
+    overrides = [*SYNTHETIC, f"output_dir={run_dir}"]
+    cfg = load_config(TRAIN_CONFIG, overrides)
+    try:
+        check = export_3d.main(["--cfg", TRAIN_CONFIG, *overrides, "--out", art, "--batch-size", "1", "--check"])
+    except SystemExit as e:
+        fail(f"export_3d --check: {e}")
+    size_mb = sum(os.path.getsize(os.path.join(art, f)) for f in os.listdir(art)) / 1e6
+    print(f"  export_3d --check: {check['export_s']:.2f} s to export, artifact {size_mb:.1f} MB; argmax agreement "
+          f"{check['agreement']} ({check['confident_agreement']} on margin > {export_3d.TAU}), max |delta| "
+          f"{check['max_abs']}", flush=True)
+    loaded = load_inference(art)
+    nodes = kernel_nodes(loaded.program)
+    want_nodes = {k: n for k, n in EXPECTED_LAUNCHES.items() if n}
+    if nodes != want_nodes:
+        fail(f"the loaded program's mvpnet:: nodes {nodes}, expected {want_nodes}")
+    print(f"  loaded program: mvpnet:: nodes {nodes}", flush=True)
+
+    model, _ = test_3d.restore(cfg, "cuda")
+    with open(os.path.join(art, "meta.json")) as fh:
+        meta = json.load(fh)
+    spec = meta["input_spec"]
+    B, N, _ = spec["points"]["shape"]
+    _, V, H, W = spec["depth"]["shape"]
+
+    def request_batch(seed):
+        raw = example_batch(np.random.default_rng(seed), B=B, N=N, V=V, H=H, W=W)
+        return {k: raw[k] for k in spec}
+
+    @torch.no_grad()
+    def eager(batch):
+        return model(prepare_batch(cfg, to_device(batch, "cuda"), training=False))[0].float().cpu().numpy()
+
+    def npz(**arrays) -> bytes:
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        return buf.getvalue()
+
+    httpd = serve_3d.serve(art, port=0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        if http(f"{base}/healthz") != (200, b"ok"):
+            fail(f"/healthz: {http(f'{base}/healthz')}")
+        status, body = http(f"{base}/meta")
+        if status != 200 or json.loads(body) != meta:
+            fail(f"/meta: status {status}, equal to meta.json: {status == 200 and json.loads(body) == meta}")
+        http(f"{base}/predict", npz(**request_batch(SERVE_REQUESTS)))  # warm-up
+        eager(request_batch(SERVE_REQUESTS))
+        requests = []
+        for seed in range(SERVE_REQUESTS):
+            batch = request_batch(seed)
+            body = npz(**batch)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            status, reply = http(f"{base}/predict", body)
+            predict_ms = (time.perf_counter() - t0) * 1e3
+            counts = ops.launch_counts()
+            if status != 200:
+                fail(f"/predict {seed}: status {status}: {reply[:300]!r}")
+            if counts != EXPECTED_LAUNCHES:
+                fail(f"/predict {seed}: kernel launches {counts}, expected {EXPECTED_LAUNCHES}")
+            with np.load(io.BytesIO(reply)) as z:
+                logits = z["logits"]
+            t0 = time.perf_counter()
+            want = eager(batch)
+            eager_ms = (time.perf_counter() - t0) * 1e3
+            if logits.shape != tuple(meta["output"]["shape"]) or not np.isfinite(logits).all():
+                fail(f"/predict {seed}: logits {logits.shape}, finite={bool(np.isfinite(logits).all())}")
+            result = export_3d.agreement(logits, want)
+            if result["confident_agreement"] < export_3d.MIN_CONFIDENT_AGREEMENT:
+                fail(f"/predict {seed}: the artifact against the eager forward {result}")
+            requests.append(dict(result, seed=seed, predict_ms=predict_ms, eager_ms=eager_ms))
+            print(f"  /predict {seed}: {predict_ms:.3f} ms (eager forward {eager_ms:.3f} ms), launches as a request, "
+                  f"argmax agreement {result['agreement']} with the eager forward, max |delta| {result['max_abs']}",
+                  flush=True)
+        # where a round trip's time goes: the handler's work in this process
+        # (decode the npz, the artifact's forward, the logits to the host,
+        # encode the reply), and the artifact's forward alone
+        for r in requests:
+            body = npz(**request_batch(r["seed"]))
+            t0 = time.perf_counter()
+            with np.load(io.BytesIO(body)) as z:
+                logits = loaded({k: z[k] for k in z.files}).float().cpu().numpy()
+            t1 = time.perf_counter()
+            npz(logits=logits)
+            r["handler_ms"] = (time.perf_counter() - t0) * 1e3
+            r["artifact_forward_ms"] = (t1 - t0) * 1e3
+        batch = request_batch(0)
+        ops.set_impl("reference")
+        try:
+            ops.reset_launch_counts()
+            plain = eager(batch)
+            if any(ops.launch_counts().values()):
+                fail(f"the reference forward launched kernels: {ops.launch_counts()}")
+        finally:
+            ops.set_impl("auto")
+        status, reply = http(f"{base}/predict", npz(**batch))
+        with np.load(io.BytesIO(reply)) as z:
+            reference_agreement = float((z["logits"].argmax(-1) == plain.argmax(-1)).mean())
+        print(f"  /predict 0 against the plain versions' eager forward: argmax agreement {reference_agreement}",
+              flush=True)
+        status, reply = http(f"{base}/predict", b"junk")
+        if status != 400 or "error" not in json.loads(reply):
+            fail(f"a junk /predict: status {status}, {reply[:300]!r}")
+        if http(f"{base}/healthz")[0] != 200:
+            fail("/healthz after a junk request")
+        print("  junk /predict: 400 with an error; /healthz 200 after it", flush=True)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    host_us = op_host_us(torch)
+    print(f"  the op layer: {host_us['op']} us a call of the three-NN's wrapper through torch.ops.mvpnet.knn, "
+          f"{host_us['launch']} us of its CUDA implementation alone (host time, FP4's shape)", flush=True)
+    predict = [r["predict_ms"] for r in requests]
+    eager_ms = [r["eager_ms"] for r in requests]
+    summary = {
+        "card": card_line(), "export_s": check["export_s"], "artifact_mb": size_mb, "check": check,
+        "program_nodes": nodes, "requests": requests, "predict_ms_median": statistics.median(predict),
+        "predict_ms_max": max(predict), "eager_ms_median": statistics.median(eager_ms),
+        "handler_ms_median": statistics.median(r["handler_ms"] for r in requests),
+        "artifact_forward_ms_median": statistics.median(r["artifact_forward_ms"] for r in requests),
+        "max_abs": max(r["max_abs"] for r in requests), "reference_argmax_agreement": reference_agreement,
+        "op_host_us": host_us,
+    }
+    print(f"  serve: /predict median {summary['predict_ms_median']:.3f} ms, max {summary['predict_ms_max']:.3f} ms; "
+          f"eager forward median {summary['eager_ms_median']:.3f} ms; in this process the handler's work "
+          f"{summary['handler_ms_median']:.3f} ms, of which the artifact's forward (decode included) "
+          f"{summary['artifact_forward_ms_median']:.3f} ms; max |delta| {summary['max_abs']} "
+          f"({summary['card']})", flush=True)
+    return summary
 
 
 def recipe_phase(torch) -> dict:
@@ -1677,7 +1885,9 @@ def main() -> None:
     print(json.dumps({"slice": summary}), flush=True)
     print(json.dumps({"scene": scene_summary}), flush=True)
     print(json.dumps({"train": train_summary}), flush=True)
+    serve = recipe["cli"].pop("serve")
     print(json.dumps({"recipe": recipe}), flush=True)
+    print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

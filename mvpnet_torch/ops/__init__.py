@@ -3,7 +3,9 @@
 Counterpart of ``mvpnet_tpu/ops/__init__.py``. Every op has two versions
 behind one signature:
   * the CUDA kernels (``csrc/*.cu``, wrapped by ``knn``, ``knn_bucketed``,
-    ``fps`` and ``ballquery``);
+    ``fps`` and ``ballquery``), each wrapper a ``torch.library`` custom op
+    ``torch.ops.mvpnet.*`` (``_library``) whose CPU implementation is its
+    plain version, so that ``torch.export`` keeps each kernel as one node;
   * the plain PyTorch versions (``reference``).
 
 ``set_impl`` chooses, and a call's ``impl=`` overrides it for that call
@@ -46,6 +48,7 @@ from __future__ import annotations
 
 import torch
 
+from mvpnet_torch.ops import _library  # noqa: F401  (registers the mvpnet:: ops)
 from mvpnet_torch.ops import ballquery as _bq
 from mvpnet_torch.ops import fps as _fps
 from mvpnet_torch.ops import knn as _knn

@@ -1,8 +1,9 @@
 """Fixed-K ball query: wrapper of the CUDA kernel ``csrc/ballquery.cu``.
 
 Counterpart of ``mvpnet_tpu/ops/pallas/ballquery.py`` (``_bq_kernel``).
-A CUDA tensor launches the kernel; a CPU tensor takes the plain version
-(``reference.ball_query``). ``launches`` counts kernel launches.
+``ball_query`` calls the op ``mvpnet::ball_query`` (``ops/_library.py``): a
+CUDA tensor launches the kernel (``launch``); a CPU tensor takes the plain
+version (``reference.ball_query``). ``launches`` counts kernel launches.
 
 The kernel serves ``centers_per_block`` centers with one block, which walks
 the points in tiles of ``TILE``; ``tiled_emulation`` is its schedule in
@@ -96,7 +97,6 @@ def tiled_emulation(centers, points, radius: float, nsample: int, valid_mask=Non
 
 def ball_query(centers: torch.Tensor, points: torch.Tensor, radius: float, nsample: int, valid_mask=None):
     """-> idx (B, M, K) int32, count (B, M) int32; see reference.ball_query."""
-    global launches
     _cuda.check_xyz(centers, "centers")
     _cuda.check_xyz(points, "points", centers.shape[0])
     _cuda.same_device(centers, points)
@@ -108,8 +108,15 @@ def ball_query(centers: torch.Tensor, points: torch.Tensor, radius: float, nsamp
         if tuple(valid_mask.shape) != (B, N) or valid_mask.dtype != torch.bool:
             raise ValueError(f"valid_mask must be a ({B}, {N}) bool tensor")
         _cuda.same_device(points, valid_mask)
-    if not centers.is_cuda:
-        return reference.ball_query(centers, points, radius, nsample, valid_mask)
+    return torch.ops.mvpnet.ball_query(centers, points, radius, nsample, valid_mask)
+
+
+def launch(centers: torch.Tensor, points: torch.Tensor, radius: float, nsample: int, valid_mask=None):
+    """The CUDA implementation of ``mvpnet::ball_query``: ``centers_per_block``
+    centers a block for this shape and card."""
+    global launches
+    B, M, _ = centers.shape
+    N = points.shape[1]
     c = centers.float().contiguous()
     p = reference.mask_points(points.float(), valid_mask).contiguous()
     idx = torch.empty((B, M, nsample), dtype=torch.int32, device=c.device)

@@ -9,10 +9,12 @@ become two entry points of one source:
     config: 102,400 points). Each CTA of the cluster keeps a slice of the
     row in registers and shared memory (``cluster_split``).
 ``route`` picks between them from the row length and the card's shared
-memory, as the TPU wrapper picks by VMEM. A CUDA tensor launches a kernel; a
-CPU tensor takes the plain version (``reference.farthest_point_sample``).
-``launches`` counts launches of ``fps`` and ``perrow.launches`` those of
-``fps_perrow``.
+memory, as the TPU wrapper picks by VMEM, and ``farthest_point_sample``
+calls the op of that name, ``mvpnet::fps`` or ``mvpnet::fps_perrow``
+(``ops/_library.py``): a CUDA tensor launches the kernel (``launch``,
+``launch_perrow``); a CPU tensor takes ``mvpnet::fps``'s plain version
+(``reference.farthest_point_sample``). ``launches`` counts launches of
+``fps`` and ``perrow.launches`` those of ``fps_perrow``.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from mvpnet_torch.ops import _cuda, reference
+from mvpnet_torch.ops import _cuda
 
 # bytes a point takes in the kernels' rows: float4 (x, y, z, dist)
 ROW_BYTES = 16
@@ -121,7 +123,6 @@ def shared_bytes(device: torch.device) -> int:
 
 def farthest_point_sample(points: torch.Tensor, npoint: int, valid_mask=None):
     """(B, N, 3) -> (B, npoint) int32; see reference.farthest_point_sample."""
-    global launches
     _cuda.check_xyz(points, "points")
     B, N, _ = points.shape
     if npoint < 1 or N < 1:
@@ -130,30 +131,45 @@ def farthest_point_sample(points: torch.Tensor, npoint: int, valid_mask=None):
         if tuple(valid_mask.shape) != (B, N) or valid_mask.dtype != torch.bool:
             raise ValueError(f"valid_mask must be a ({B}, {N}) bool tensor")
         _cuda.same_device(points, valid_mask)
-    if not points.is_cuda:
-        return reference.farthest_point_sample(points, npoint, valid_mask)
+    kernel = route(N, shared_bytes(points.device)) if points.is_cuda else "fps"
+    return getattr(torch.ops.mvpnet, kernel)(points, npoint, valid_mask)
+
+
+def _operands(points, npoint: int, valid_mask):
+    """The kernels' operands: f32 points, the mask as bytes (kept alive by
+    the caller through the launch) and the output."""
     p = points.float().contiguous()
-    mask_ptr = None
-    if valid_mask is not None:
-        mask = valid_mask.contiguous().view(torch.uint8)
-        mask_ptr = mask.data_ptr()
-    out = torch.empty((B, npoint), dtype=torch.int32, device=p.device)
-    stream = _cuda.stream(p)
-    avail = shared_bytes(p.device)
-    if route(N, avail) == "fps":
-        layout = block_layout(N)
-        fn = _cuda.function("fps", "fps")
-        _cuda.launch(fn, p.data_ptr(), mask_ptr, B, N, npoint, layout.reg_points, layout.threads, out.data_ptr(), stream)
-        launches += 1
-    else:
-        slice_len, smem_points, slices = cluster_split(N, avail)
-        scratch = None
-        if any(s.overflow for s in slices):
-            scratch = torch.empty((B, N, 4), dtype=torch.float32, device=p.device)
-        fn = _cuda.function("fps", "fps_perrow")
-        _cuda.launch(
-            fn, p.data_ptr(), mask_ptr, B, N, npoint, slice_len, smem_points,
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(), stream,
-        )
-        perrow.launches += 1
+    mask = None if valid_mask is None else valid_mask.contiguous().view(torch.uint8)
+    return p, mask, torch.empty((p.shape[0], npoint), dtype=torch.int32, device=p.device)
+
+
+def launch(points: torch.Tensor, npoint: int, valid_mask=None):
+    """The CUDA implementation of ``mvpnet::fps``: the row in one block,
+    laid out by ``block_layout``."""
+    global launches
+    p, mask, out = _operands(points, npoint, valid_mask)
+    mask_ptr = None if mask is None else mask.data_ptr()
+    B, N, _ = p.shape
+    layout = block_layout(N)
+    _cuda.launch(_cuda.function("fps", "fps"), p.data_ptr(), mask_ptr, B, N, npoint, layout.reg_points,
+                 layout.threads, out.data_ptr(), _cuda.stream(p))
+    launches += 1
+    return out
+
+
+def launch_perrow(points: torch.Tensor, npoint: int, valid_mask=None):
+    """The CUDA implementation of ``mvpnet::fps_perrow``: the row on a
+    cluster, split by ``cluster_split``."""
+    p, mask, out = _operands(points, npoint, valid_mask)
+    mask_ptr = None if mask is None else mask.data_ptr()
+    B, N, _ = p.shape
+    slice_len, smem_points, slices = cluster_split(N, shared_bytes(p.device))
+    scratch = None
+    if any(s.overflow for s in slices):
+        scratch = torch.empty((B, N, 4), dtype=torch.float32, device=p.device)
+    _cuda.launch(
+        _cuda.function("fps", "fps_perrow"), p.data_ptr(), mask_ptr, B, N, npoint, slice_len, smem_points,
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(), _cuda.stream(p),
+    )
+    perrow.launches += 1
     return out

@@ -1,7 +1,8 @@
 """Brute-force exact kNN: wrapper of the CUDA kernel ``csrc/knn.cu``.
 
-Counterpart of ``mvpnet_tpu/ops/pallas/knn.py`` (``_knn_kernel``). A CUDA
-tensor launches the kernel; a CPU tensor takes the plain version
+Counterpart of ``mvpnet_tpu/ops/pallas/knn.py`` (``_knn_kernel``). ``knn``
+calls the op ``mvpnet::knn`` (``ops/_library.py``): a CUDA tensor launches
+the kernel (``launch``), a CPU tensor takes the plain version
 (``reference.knn``). ``launches`` counts kernel launches.
 
 The kernel's schedule (lanes a query, queries a thread, refs a tile) comes
@@ -93,8 +94,12 @@ def knn(queries: torch.Tensor, refs: torch.Tensor, k: int):
     """(B, M, 3), (B, N, 3) -> (B, M, k) f32 squared distances, ascending,
     and (B, M, k) int32 indices; ties go to the lower index."""
     check_args(queries, refs, k)
-    if not queries.is_cuda:
-        return reference.knn(queries, refs, k)
+    return torch.ops.mvpnet.knn(queries, refs, k)
+
+
+def launch(queries: torch.Tensor, refs: torch.Tensor, k: int):
+    """The CUDA implementation of ``mvpnet::knn``: the kernel at ``layout``'s
+    layout for this shape and card."""
     B, M, _ = queries.shape
     return knn_at(queries, refs, k, *layout(B, M, refs.shape[1], _sms(queries.device)))
 

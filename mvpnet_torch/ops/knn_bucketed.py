@@ -12,15 +12,18 @@ size:
     blocks, then the slices' lists merged: for searches too small for the
     sort and gate to pay.
 ``prepare`` / ``knn_prepared`` split the ref side off for a cloud queried
-many times (``ops.knn_prepare``). A CUDA tensor launches the kernel; a CPU
-tensor takes the plain version (``reference.knn``). ``launches`` counts
-kernel launches, of either mode.
+many times (``ops.knn_prepare``). ``knn`` and ``knn_prepared`` call the ops
+``mvpnet::knn_fusion`` and ``mvpnet::knn_prepared`` (``ops/_library.py``),
+the mode chosen before the op: a CUDA tensor launches the kernel
+(``launch``, ``launch_prepared``; the demand mode's Morton prep runs inside),
+a CPU tensor takes the plain version (``reference.knn``). ``launches``
+counts kernel launches, of either mode.
 """
 from __future__ import annotations
 
 import torch
 
-from mvpnet_torch.ops import _cuda, morton, reference
+from mvpnet_torch.ops import _cuda, morton
 from mvpnet_torch.ops.knn import check_args
 
 # routing (ops.knn): ref clouds of at least MIN_N points with at least
@@ -70,15 +73,18 @@ def knn(queries: torch.Tensor, refs: torch.Tensor, k: int, mode: str | None = No
     mode = route(B, M, N) if mode is None else mode
     if mode not in MODES:
         raise ValueError(f"unknown fusion kNN mode {mode!r}; expected one of {MODES}")
-    if not queries.is_cuda:
-        return reference.knn(queries, refs, k)
+    return torch.ops.mvpnet.knn_fusion(queries, refs, k, mode, scanned)
+
+
+def launch(queries, refs, k: int, mode: str, scanned=None):
+    """The CUDA implementation of ``mvpnet::knn_fusion`` in ``mode``."""
     if mode == "demand":
         # the quantization box of both sorts comes from the queries, as
         # _prepare's does
         q = queries.float()
-        _, tile_n, _ = morton.demand_tiles(M, N)
+        _, tile_n, _ = morton.demand_tiles(queries.shape[1], refs.shape[1])
         p = morton.prepare_refs(refs, tile_n, q.amin(dim=1, keepdim=True), q.amax(dim=1, keepdim=True))
-        return knn_prepared(queries, p, k, scanned)
+        return launch_prepared(queries, p, k, scanned)
     return _brute(queries, refs, k)
 
 
@@ -114,13 +120,17 @@ def prepare(refs: torch.Tensor) -> morton.PreparedRefs:
 
 def knn_prepared(queries: torch.Tensor, p: morton.PreparedRefs, k: int, scanned=None):
     """The demand mode against a prepared cloud: only the query side is
-    prepared here (``_knn_prepared_impl``, knn_bucketed.py:935); the
+    prepared per call (``_knn_prepared_impl``, knn_bucketed.py:935); the
     contract of ``knn``."""
-    global launches
     check_args(queries, p.refs, k)
-    if not queries.is_cuda:
-        return reference.knn(queries, p.refs, k)
     _cuda.same_device(queries, p.r4)
+    return torch.ops.mvpnet.knn_prepared(queries, p.r4, p.boxes, p.refs, p.n, p.tile_n, k, scanned)
+
+
+def launch_prepared(queries: torch.Tensor, p: morton.PreparedRefs, k: int, scanned=None):
+    """The CUDA implementation of ``mvpnet::knn_prepared``: the query side's
+    prep, then the demand mode's kernel."""
+    global launches
     B, M, _ = queries.shape
     N_pad = p.r4.shape[1]
     tile_m, _, sub_gate = morton.demand_tiles(M, p.n)

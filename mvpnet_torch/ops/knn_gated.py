@@ -14,9 +14,10 @@ The kernel's schedule (lanes a query row, rows a block) comes from
 layout, and ``split_emulation`` is the schedule and its gates in plain
 PyTorch, for the tests.
 
-A CUDA tensor launches the kernels; a CPU tensor takes the plain version
-(``morton.gated_plain``). ``launches`` counts search-kernel launches (the
-prep's are ``morton.launches``).
+``knn`` calls the op ``mvpnet::knn_gated`` (``ops/_library.py``): a CUDA
+tensor launches the kernels (``launch``); a CPU tensor takes the plain
+version (``morton.gated_plain``). ``launches`` counts search-kernel launches
+(the prep's are ``morton.launches``).
 """
 from __future__ import annotations
 
@@ -74,8 +75,12 @@ def knn(queries: torch.Tensor, refs: torch.Tensor, k: int, scanned: torch.Tensor
     gates let through added to it. ``sort_refs`` False keeps the refs in their
     order (``ops.knn``'s ``refs_coherent``)."""
     check_args(queries, refs, k)
-    if not queries.is_cuda:
-        return plain(queries, refs, k, sort_refs=sort_refs)
+    return torch.ops.mvpnet.knn_gated(queries, refs, k, sort_refs, scanned)
+
+
+def launch(queries, refs, k: int, sort_refs: bool = True, scanned=None):
+    """The CUDA implementation of ``mvpnet::knn_gated``: the prep and the
+    kernel at ``layout``'s layout for this shape and card."""
     tile_m, tile_n, _ = tiles(queries.shape[1], refs.shape[1])
     B, M, _ = queries.shape
     return knn_at(queries, refs, k, *layout(B, M, tile_m, tile_n, _sms(queries.device)), scanned, sort_refs)

@@ -10,8 +10,10 @@ first bound that cannot beat its worst k-th distance, the first tile
 included. It takes at most 2^17 refs and raises above that, as the JAX
 package does.
 
-A CUDA tensor launches the kernels; a CPU tensor takes the plain version
-(``morton.gated_plain``). ``launches`` counts search-kernel launches.
+``knn`` calls the op ``mvpnet::knn_resident`` (``ops/_library.py``): a
+CUDA tensor launches the kernels (``launch``); a CPU tensor takes the plain
+version (``morton.gated_plain``). ``launches`` counts search-kernel
+launches.
 """
 from __future__ import annotations
 
@@ -47,8 +49,13 @@ def knn(queries: torch.Tensor, refs: torch.Tensor, k: int, scanned: torch.Tensor
     ascending, and (B, M, k) int32 indices; ties follow the visit order.
     ``scanned`` and ``sort_refs``: as ``knn_gated.knn``'s."""
     check_args(queries, refs, k)
-    if not queries.is_cuda:
-        return plain(queries, refs, k, sort_refs=sort_refs)
+    check_size(refs.shape[1])
+    return torch.ops.mvpnet.knn_resident(queries, refs, k, sort_refs, scanned)
+
+
+def launch(queries, refs, k: int, sort_refs: bool = True, scanned=None):
+    """The CUDA implementation of ``mvpnet::knn_resident``: the prep and the
+    kernel at ``layout``'s layout for this shape and card."""
     B, M, _ = queries.shape
     return knn_at(queries, refs, k, *layout(B, M, *tiles(M), _sms(queries.device)), scanned, sort_refs)
 

@@ -206,17 +206,29 @@ SORT_PASSES = 4
 @torch.no_grad()
 def prepare_device(queries: torch.Tensor, refs: torch.Tensor, tile_m: int, tile_n: int,
                    sort_refs: bool = True) -> DevicePrepared:
-    """``prepare`` on the card, in csrc/morton.cu's kernels: the query box,
-    both sides' Morton codes and one stable radix sort of each row's keys
-    (the queries' first, then the refs'), then the gather with the tile
-    boxes and each query tile's bounds in visit order: eight launches. CUDA
-    tensors only."""
-    global launches
+    """``prepare`` on the card, in csrc/morton.cu's kernels (the op
+    ``mvpnet::morton_prep``, ``ops/_library.py``): the query box, both
+    sides' Morton codes and one stable radix sort of each row's keys (the
+    queries' first, then the refs'), then the gather with the tile boxes and
+    each query tile's bounds in visit order: eight launches. CUDA tensors
+    only (``prepare`` is the plain version; ``prepare_device_plain`` gives
+    its output in this layout)."""
     _cuda.check_xyz(queries, "queries")
     _cuda.check_xyz(refs, "refs", queries.shape[0])
     _cuda.same_device(queries, refs)
     if not queries.is_cuda:
         raise ValueError("prepare_device launches kernels: it needs CUDA tensors (prepare is the plain version)")
+    q4, r4, *rest = torch.ops.mvpnet.morton_prep(queries, refs, tile_m, tile_n, sort_refs)
+    return DevicePrepared(q4.view(torch.float32), r4.view(torch.float32), *rest, queries.shape[1], refs.shape[1],
+                          sort_refs, tile_m, tile_n)
+
+
+def launch_prep(queries: torch.Tensor, refs: torch.Tensor, tile_m: int, tile_n: int, sort_refs: bool = True):
+    """The CUDA implementation of ``mvpnet::morton_prep``: (q4, r4, rbox,
+    order, lb_sorted) of ``DevicePrepared``, q4 and r4 as their int32 words
+    (each point's 4th word is an index, and the -1 of a pad row is a NaN's
+    bits as a float: the words compare exactly)."""
+    global launches
     B, M, _ = queries.shape
     N = refs.shape[1]
     q = queries.float().contiguous()
@@ -240,7 +252,29 @@ def prepare_device(queries: torch.Tensor, refs: torch.Tensor, tile_m: int, tile_
                  M_pad, N_pad, tile_m, tile_n, int(sort_refs), q4.data_ptr(), r4.data_ptr(), qbox.data_ptr(),
                  rbox.data_ptr(), order.data_ptr(), lb_sorted.data_ptr(), stream)
     launches += 1
-    return DevicePrepared(q4, r4, rbox, order, lb_sorted, M, N, sort_refs, tile_m, tile_n)
+    return q4.view(torch.int32), r4.view(torch.int32), rbox, order, lb_sorted
+
+
+def prepare_device_plain(queries: torch.Tensor, refs: torch.Tensor, tile_m: int, tile_n: int, sort_refs: bool = True):
+    """The plain chain (``prepare``) in ``prepare_device``'s layout: (q4, r4,
+    rbox, order, lb_sorted), each point's original index in its 4th word (-1
+    for a pad query row, the last sorted ref's for a pad ref), q4 and r4 as
+    int32 words. The CPU implementation of ``mvpnet::morton_prep``."""
+    p = prepare(queries, refs, tile_m, tile_n, sort_refs)
+    B, M = p.q_order.shape
+    N = refs.shape[1]
+    q_index = torch.full((B, p.q_sorted.shape[1]), -1, dtype=torch.int32, device=queries.device)
+    q_index[:, :M] = p.q_order
+    r_index = p.r_order if sort_refs else torch.arange(N, device=refs.device).expand(B, N)
+    r_index = r_index.to(torch.int32)
+    r_index = torch.cat([r_index, r_index[:, -1:].expand(B, p.r_sorted.shape[1] - N)], dim=1)
+
+    def with_index(xyz, index):
+        return torch.cat([xyz.view(torch.int32), index[..., None]], dim=-1)
+
+    rlo, rhi = tile_bounds(p.r_sorted, tile_n)
+    return (with_index(p.q_sorted, q_index), with_index(p.r_sorted, r_index), torch.cat([rlo, rhi], dim=-1),
+            p.order, p.lb_sorted)
 
 
 class PreparedRefs(NamedTuple):
