@@ -131,12 +131,31 @@ Phases, each of which fails the run with a nonzero exit:
            forward host ms.
      It prints the {"recipe": ...} line and its seconds, then the
      {"serve": ...} line of (d).
+  8. dist: the multi-device layer (mvpnet_torch/dist) on the one card:
+       (a) cli.train_3d under python -m torch.distributed.run --standalone
+           --nproc_per_node 1 at the training config (mesh.data=1, 3 steps,
+           one validation batch): its log must name backend nccl, world 1,
+           device cuda:0, its kernel launches must be the chunk path's a
+           forward, and its step losses must equal an in-process train() of
+           the same config within DIST_LOSS_RTOL; then cli.test_3d --sharded
+           (mesh.space=1) under the launcher on that run prints a mIoU;
+       (b) the ring of dist/fusion.py on the loopback mesh at space 2 and 4
+           over the training config's sharded-scene shapes (4 windows of
+           8192 points a shard, the 12-view set of a synthetic validation
+           scene: 230,400 refs in blocks of 115,200 or 57,600): S^2 launches
+           of row 1 a pass, distances and picks equal bit for bit to the
+           unsharded ops.knn; a hop, the unsharded search and a pass timed;
+       (c) predict_scene_sharded on the loopback mesh at space 2 with (a)'s
+           weights on that scene against predict_scene_fused (cli.export_3d's
+           margin rule), its launches a pass and ms a pass.
+     It prints the {"dist": ...} line.
 Then it prints the {"kernels": [...]} line (seven kernels and the prep of
 rows 6 and 7, "morton_prep": their launches, each row's launches on the
 recipe's paths under "recipe_launches",
 times and bounds on the scene path, the chunk path's under "chunk_path",
 the train path's under "train_path", knn_prepared's under "fused_path";
-rows 6 and 7 at the train shape, row 6's subgroup gate under "scene_path"),
+rows 6 and 7 at the train shape, row 6's subgroup gate under "scene_path",
+each row's launches on the dist phase's paths under "dist_launches"),
 the card line, and last
 {"ok": true, "device": {...}}.
 Without CUDA, or without the mvpnet_torch package beside it, it exits
@@ -193,6 +212,19 @@ SYNTHETIC = ["data.name=synthetic"]
 CLI_STEPS = 3
 # /predict requests of the serve step, on example_batch seeds 0 to SERVE_REQUESTS - 1
 SERVE_REQUESTS = 5
+# the dist phase: steps of the launched and the in-process training runs; the
+# largest relative difference of their step losses after the first, which
+# must be equal (the same program on the same card: one rank's DDP all-reduce
+# is a copy, but the backward's atomics (index_add_, cuDNN) sum in no fixed
+# order, and Adam's first updates are lr * sign(g), so a gradient element near
+# zero can move a weight by 2 lr; two in-process runs part the same way, and
+# their spread is printed beside it); seconds a launched command may take;
+# the ring's space sizes and the sharded scene's
+DIST_STEPS = 3
+DIST_LOSS_RTOL = 2e-2
+DIST_TIMEOUT = 300
+DIST_RING_SPACES = (2, 4)
+DIST_SCENE_SPACE = 2
 # the fusion kNN's kernel for each ops.set_fusion_variant
 VARIANT_KERNEL = {"demand": "knn_fusion", "gated": "knn_gated", "resident": "knn_resident"}
 TPU_KERNELS = {
@@ -1824,6 +1856,284 @@ def recipe_launches(summary: dict, name: str) -> dict:
     }
 
 
+def read_losses(run_dir: str) -> list[float]:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [r["train/loss"] for r in map(json.loads, f) if "train/loss" in r]
+
+
+def launch(cmd: list) -> subprocess.Popen:
+    """Start a command line under torch.distributed.run, one rank on this
+    card (its output in temporary files, read by ``finish``)."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", *cmd]
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    # a session of its own, so that ``stop`` can kill what the launcher leaves
+    proc = subprocess.Popen(argv, stdout=out, stderr=err, text=True, cwd=root, start_new_session=True)
+    proc.files = (out, err)
+    return proc
+
+
+def stop(proc: subprocess.Popen) -> None:
+    """End a ``launch``ed command that is still running, with its ranks: the
+    launcher stops its ranks on SIGTERM (they run in sessions of their own);
+    past 30 s the launcher's session is killed."""
+    import signal
+
+    if proc.poll() is not None:
+        return
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def finish(proc: subprocess.Popen, what: str, timeout: int = DIST_TIMEOUT) -> str:
+    """Wait for a ``launch``ed command (killed past ``timeout``); its stdout,
+    or fail with the end of its stderr."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        stop(proc)
+        fail(f"{what} under torch.distributed.run did not finish in {timeout} s")
+    out, err = proc.files
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    out.close()
+    err.close()
+    if proc.returncode:
+        fail(f"{what} under torch.distributed.run exited {proc.returncode}: {stderr[-3000:]}")
+    return stdout
+
+
+def log_span_s(text: str) -> float:
+    """Seconds between the first and the last timestamped log line."""
+    import datetime
+    import re
+
+    stamps = re.findall(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) ", text, re.M)
+    parse = [datetime.datetime.strptime(t, "%Y-%m-%d %H:%M:%S,%f") for t in stamps]
+    return (parse[-1] - parse[0]).total_seconds() if parse else 0.0
+
+
+def dist_launcher_runs(torch, ops, directory: str) -> dict:
+    """(a): cli.train_3d under the launcher (NCCL, world 1) against an
+    in-process train() of the same config, then cli.test_3d --sharded under
+    the launcher."""
+    import ast
+    import re
+
+    from mvpnet_torch.config import load_config
+    from mvpnet_torch.entry import TRAIN_CONFIG
+    from mvpnet_torch.train.loop import train
+
+    over = SYNTHETIC + [f"train.max_steps={DIST_STEPS}", "train.log_every=1", "train.val_steps=1",
+                        "data.num_workers=1", "model.pretrained_2d=", "mesh.data=1"]
+    run = os.path.join(directory, "launched")
+    t0 = time.perf_counter()
+    proc = launch(["-m", "mvpnet_torch.cli.train_3d", "--cfg", TRAIN_CONFIG, *over, f"output_dir={run}"])
+    runs, out = [], {}
+    try:
+        for i in range(2):  # meanwhile the in-process run, twice: its own spread
+            local = os.path.join(directory, f"in_process_{i}")
+            t1 = time.perf_counter()
+            train(load_config(TRAIN_CONFIG, over + [f"output_dir={local}"]), device="cuda")
+            out[f"in_process_train_{i}_s"] = time.perf_counter() - t1
+            runs.append(read_losses(local))
+        finish(proc, "cli.train_3d")
+    finally:
+        stop(proc)  # still running only when the in-process runs failed
+    out["train_3d_s"] = time.perf_counter() - t0
+    with open(os.path.join(run, "log.txt")) as f:
+        log = f.read()
+    out["train_3d_log_s"] = log_span_s(log)
+    line = "distributed: backend nccl, rank 0, world 1, device cuda:0"
+    if line not in log:
+        fail(f"cli.train_3d under the launcher did not log {line!r}")
+    found = re.search(r"kernel launches since start: (\{.*\})", log)
+    counts = ast.literal_eval(found.group(1))
+    forwards = DIST_STEPS + 1  # the steps and one validation batch
+    out["launches_per_step"] = {k: v / forwards for k, v in counts.items()}
+    if counts != {k: n * forwards for k, n in TRAIN_LAUNCHES.items()}:
+        fail(f"cli.train_3d under the launcher: launches {counts}, want {TRAIN_LAUNCHES} x {forwards}")
+    got = read_losses(run)
+    want = runs[0]
+    if len(got) != DIST_STEPS or any(len(r) != DIST_STEPS for r in runs) or not all(map(np.isfinite, got)):
+        fail(f"step losses: launched {got}, in process {runs}")
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    out.update(losses=got, in_process_losses=runs, max_rel_loss_delta=rel(got, want),
+               in_process_spread=rel(runs[1], runs[0]), first_step_equal=got[0] == want[0])
+    print(f"  (a) NCCL world 1: losses {got} against {want} in process: first step "
+          f"{'equal' if got[0] == want[0] else 'differs'}, max rel {out['max_rel_loss_delta']:.2e} (two in-process "
+          f"runs: {out['in_process_spread']:.2e}); launches a step {out['launches_per_step']}", flush=True)
+    if got[0] != want[0] or out["max_rel_loss_delta"] > DIST_LOSS_RTOL:
+        fail(f"launched losses {got} differ from the in-process run's {want} beyond the first step's equality "
+             f"or {DIST_LOSS_RTOL}")
+
+    t0 = time.perf_counter()
+    stdout = finish(launch(["-m", "mvpnet_torch.cli.test_3d", "--cfg", TRAIN_CONFIG, "--sharded", *SYNTHETIC,
+                            "mesh.space=1", f"output_dir={run}"]), "cli.test_3d --sharded")
+    out["test_3d_sharded_s"] = time.perf_counter() - t0
+    out["test_3d_sharded_log_s"] = log_span_s(stdout)
+    results = json.loads(stdout.strip().splitlines()[-1])
+    if "sharded whole-scene eval over mesh {'data': 1, 'space': 1} (distributed: backend nccl" not in stdout:
+        fail("cli.test_3d --sharded did not run the sharded estimator over NCCL")
+    if not 0.0 <= results["miou"] <= 1.0:
+        fail(f"cli.test_3d --sharded mIoU {results['miou']}")
+    out["test_3d_sharded_miou"] = results["miou"]
+    print(f"  (a) cli.train_3d {out['train_3d_s']:.1f} s ({out['train_3d_log_s']:.1f} s logged); cli.test_3d "
+          f"--sharded (space=1): mIoU {results['miou']:.4f} in {out['test_3d_sharded_s']:.1f} s "
+          f"({out['test_3d_sharded_log_s']:.1f} s logged)", flush=True)
+    return out
+
+
+def scene_cloud(torch, cfg, scene):
+    """The scene view set's pixel cloud on the card (views of 120x160 in
+    order, so a space shard's block is a run of whole views) and a pass of
+    windows: chunks_per_shard a shard for ``space`` shards."""
+    from mvpnet_torch.core.camera import unproject_views
+    from mvpnet_torch.eval.sharded_scene import enumerate_scene_chunks, select_scene_views
+
+    frames = select_scene_views(scene, cfg.eval.scene_views)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+
+    xyz, _ = unproject_views(put(scene.depth[frames]), put(scene.intrinsics), put(scene.poses[frames]))
+    return xyz.reshape(-1, 3), [put(c[1]) for c in enumerate_scene_chunks(scene, cfg)]
+
+
+def ring_case(torch, ops, cfg, scene, S: int) -> dict:
+    """(b): the ring on the loopback mesh at ``space`` S over the scene's
+    pixel cloud, each pixel's feature its index: S^2 launches of row 1, d
+    and the picks equal to the unsharded search bit for bit; a hop, the
+    unsharded search of the same queries and a whole pass timed."""
+    from mvpnet_torch.dist.fusion import ring_knn_local
+    from mvpnet_torch.dist.mesh import make_mesh
+
+    mesh = make_mesh(local=S)
+    k = cfg.model.aggregation.k
+    cloud, windows = scene_cloud(torch, cfg, scene)
+    per = cfg.eval.chunks_per_shard
+    windows = (windows * (per * S))[: per * S]  # one pass, the scene's windows repeated to fill it
+    pts = [torch.cat(windows[s * per : (s + 1) * per]) for s in range(S)]
+    blocks = list(cloud.chunk(S))
+    index = torch.arange(len(cloud), device="cuda", dtype=torch.float32)[:, None]
+    feats = list(index.chunk(S))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = ring_knn_local(pts, blocks, feats, k=k, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = dict.fromkeys(launches, 0) | {"knn_fusion": S * S}
+    if launches != want:
+        fail(f"ring at space {S}: launches {launches}, want {want}")
+    for s, (d, _, picked) in enumerate(out):
+        d_all, idx_all = ops.knn(pts[s][None], cloud[None], k)
+        if not torch.equal(d, d_all[0]) or not torch.equal(picked[..., 0].long(), idx_all[0].long()):
+            n = int((picked[..., 0].long() != idx_all[0].long()).sum())
+            fail(f"ring at space {S}, shard {s}: not bit-equal to the unsharded kNN ({n} picks differ)")
+    hop = cuda_ms(torch, lambda: ops.knn(pts[0][None], blocks[0][None], k), KERNEL_REPS)
+    whole = cuda_ms(torch, lambda: ops.knn(pts[0][None], cloud[None], k), KERNEL_REPS)
+    ring_pass = cuda_ms(torch, lambda: ring_knn_local(pts, blocks, feats, k=k, mesh=mesh), PLAIN_REPS)
+    unsharded_pass = cuda_ms(torch, lambda: [ops.knn(p[None], cloud[None], k) for p in pts], PLAIN_REPS)
+    row = {"space": S, "queries_a_shard": len(pts[0]), "refs": len(cloud), "block_refs": len(blocks[0]),
+           "launches": launches["knn_fusion"], "hop_ms": hop, "unsharded_ms": whole, "pass_ms": ring_pass,
+           "unsharded_pass_ms": unsharded_pass}
+    print(f"  (b) ring space {S}: {len(pts[0])} queries x {len(blocks[0])} refs a hop {hop:.4f} ms, "
+          f"x {len(cloud)} refs unsharded {whole:.4f} ms; pass {ring_pass:.3f} ms (S^2 = {S * S} launches of "
+          f"row 1, d and picks equal) against {unsharded_pass:.3f} ms unsharded", flush=True)
+    return row
+
+
+def sharded_scene_case(torch, ops, cfg, scene) -> dict:
+    """(c): predict_scene_sharded on the loopback mesh at DIST_SCENE_SPACE
+    with the launched run's weights, against predict_scene_fused on the
+    same scene under cli.export_3d's margin rule; its launches a pass."""
+    from mvpnet_torch.cli.export_3d import MIN_CONFIDENT_AGREEMENT, agreement
+    from mvpnet_torch.cli.test_3d import restore
+    from mvpnet_torch.dist.mesh import make_mesh
+    from mvpnet_torch.eval.scene_fused import build_scene_fused_fns, predict_scene_fused
+    from mvpnet_torch.eval.sharded_scene import build_sharded_scene_fns, enumerate_scene_chunks, predict_scene_sharded
+
+    S = DIST_SCENE_SPACE
+    model, _ = restore(cfg, "cuda")
+    mesh = make_mesh(local=S)
+    fns, fused_fns = build_sharded_scene_fns(model, cfg, mesh), build_scene_fused_fns(model, cfg)
+    predict_scene_sharded(model, cfg, scene, mesh, fns=fns)  # warm-up
+    predict_scene_fused(model, cfg, scene, fns=fused_fns)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = predict_scene_sharded(model, cfg, scene, mesh, fns=fns)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    t0 = time.perf_counter()
+    want = predict_scene_fused(model, cfg, scene, fns=fused_fns)
+    fused_s = time.perf_counter() - t0
+    passes = -(-len(enumerate_scene_chunks(scene, cfg)) // (cfg.eval.chunks_per_shard * S))
+    per_pass = dict.fromkeys(launches, 0) | {"knn_fusion": S * S, "fps": 4 * S, "ball_query": 4 * S, "knn": 4 * S}
+    if launches != {k: n * passes for k, n in per_pass.items()}:
+        fail(f"predict_scene_sharded: launches {launches}, want {per_pass} x {passes} passes")
+    if not np.isfinite(got).all():
+        fail("predict_scene_sharded: non-finite logits")
+    agree = agreement(got[None], want[None])
+    out = {"space": S, "points": len(scene.points), "passes": passes, "launches_per_pass": per_pass,
+           "ms_a_pass": 1e3 * sharded_s / passes, "sharded_s": sharded_s, "fused_s": fused_s, **agree}
+    print(f"  (c) predict_scene_sharded, space {S}: {passes} passes of {cfg.eval.chunks_per_shard * S} windows, "
+          f"{out['ms_a_pass']:.1f} ms a pass ({sharded_s:.3f} s; fused {fused_s:.3f} s); launches a pass {per_pass}; "
+          f"against the fused estimator: argmax {agree['agreement']:.4f}, {agree['confident_agreement']:.4f} on "
+          f"margin decisions, max |delta| {agree['max_abs']:.3e}", flush=True)
+    if agree["confident_agreement"] < MIN_CONFIDENT_AGREEMENT:
+        fail(f"sharded scene disagrees with the fused estimator beyond the margin rule: {agree}")
+    return out
+
+
+def dist_phase(torch) -> dict:
+    """8: the multi-device layer on one card: (a) NCCL at world size 1
+    through the launcher, (b) the ring on the loopback mesh at space 2 and
+    4, (c) the space-sharded scene estimator on the loopback mesh."""
+    import shutil
+
+    from mvpnet_torch import ops
+    from mvpnet_torch.config import load_config
+    from mvpnet_torch.data.pipeline import build_dataset
+    from mvpnet_torch.entry import TRAIN_CONFIG
+
+    t0 = time.perf_counter()
+    directory = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke_dist")
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        summary = {"nccl_world1": dist_launcher_runs(torch, ops, directory)}
+        cfg = load_config(TRAIN_CONFIG, SYNTHETIC + [f"output_dir={directory}/launched"])
+        scene = build_dataset(cfg.data, batch_size=1, training=False, seed=0).scenes[0]
+        with torch.no_grad():
+            summary["ring"] = [ring_case(torch, ops, cfg, scene, S) for S in DIST_RING_SPACES]
+            summary["sharded_scene"] = sharded_scene_case(torch, ops, cfg, scene)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"  dist phase: {summary['seconds']:.1f} s", flush=True)
+    return summary
+
+
+def dist_launches(summary: dict, name: str) -> dict:
+    """A kernel's launches on each path of the dist phase."""
+    out = {"nccl_train_step": summary["nccl_world1"]["launches_per_step"][name]}
+    for row in summary["ring"]:
+        out[f"ring_pass_space{row['space']}"] = row["launches"] if name == "knn_fusion" else 0
+    out["sharded_scene_pass"] = summary["sharded_scene"]["launches_per_pass"][name]
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1864,6 +2174,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     print("recipe phase:", flush=True)
     recipe = recipe_phase(torch)
+    torch.cuda.empty_cache()
+    print("dist phase:", flush=True)
+    dist = dist_phase(torch)
 
     def path(row):  # a row's numbers, nested under another row of the same kernel
         return {k: v for k, v in row.items() if k not in ("name", "route", "source", "replaces")}
@@ -1882,12 +2195,14 @@ def main() -> None:
     rows += [train_rows["knn_gated"], train_rows["knn_resident"], train_rows["morton_prep"]]
     for row in rows:
         row["recipe_launches"] = recipe_launches(recipe, row["name"])
+        row["dist_launches"] = dist_launches(dist, row["name"])
     print(json.dumps({"slice": summary}), flush=True)
     print(json.dumps({"scene": scene_summary}), flush=True)
     print(json.dumps({"train": train_summary}), flush=True)
     serve = recipe["cli"].pop("serve")
     print(json.dumps({"recipe": recipe}), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
+    print(json.dumps({"dist": dist}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from mvpnet_torch.cli.train_3d import parse_args
 from mvpnet_torch.config import load_config
+from mvpnet_torch.dist import bootstrap
 from mvpnet_torch.train.loop import train
 
 
@@ -25,4 +26,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        bootstrap.shutdown()

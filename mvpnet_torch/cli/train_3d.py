@@ -1,4 +1,4 @@
-"""CLI: train a 3D model (the fusion model or the PointNet++ baseline) on one GPU.
+"""CLI: train a 3D model (the fusion model or the PointNet++ baseline).
 
 Counterpart of ``python -m mvpnet_tpu.cli.train_3d``:
 
@@ -8,13 +8,19 @@ Counterpart of ``python -m mvpnet_tpu.cli.train_3d``:
 
 Checkpoints, ``log.txt`` and ``metrics.jsonl`` go to ``cfg.output_dir``; a
 run resumes from its latest checkpoint unless ``--no-resume``. ``--device
-cpu`` runs on the CPU (tiny configs only).
+cpu`` runs on the CPU (tiny configs only). On several GPUs (or CPU ranks)
+the same command runs under PyTorch's launcher, one process a rank, with
+the mesh in ``mesh.data`` / ``mesh.space`` (``train/loop.py``):
+
+  python -m torch.distributed.run --standalone --nproc_per_node 2 -m mvpnet_torch.cli.train_3d \
+      --cfg configs/scannet/mvpnet_3d_unet_resnet34_pn2ssg.yaml data.name=synthetic mesh.data=2
 """
 from __future__ import annotations
 
 import argparse
 
 from mvpnet_torch.config import load_config
+from mvpnet_torch.dist import bootstrap
 from mvpnet_torch.train.loop import train
 
 
@@ -36,4 +42,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        bootstrap.shutdown()

@@ -271,14 +271,19 @@ class PrefetchIterator:
     batch stream, so the threads share no state; any other iterable is one
     stream that the threads take in turn behind a lock, so its batches come
     out in its order. A batch that is not a dict (a tuple, a list, an array)
-    crosses element by element in the same structure. A producer's
-    exception is raised by ``__next__``; ``close()`` stops and joins the
-    threads."""
+    crosses element by element in the same structure. ``put_fn`` (a host
+    batch -> the device batch) replaces the transfer, as JAX's mesh mode
+    does (``train/loop.py`` cuts each batch to the rank's arrays with it);
+    packing is off then. A producer's exception is raised by ``__next__``;
+    ``close()`` stops and joins the threads."""
 
-    def __init__(self, source, prefetch: int = 2, num_threads: int = 4, device=None, pack: bool = False):
+    def __init__(
+        self, source, prefetch: int = 2, num_threads: int = 4, device=None, pack: bool = False, put_fn=None
+    ):
         self._queue: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
         self._device = torch.device(device) if device is not None else torch.device("cpu")
-        self._pack = pack
+        self._put_fn = put_fn
+        self._pack = pack and put_fn is None  # the rank's arrays are cut per key
         self._ready = None  # the transferred-ahead batch
         self._ready_exc = None  # a failure of that transfer, raised next call
         self._stop = threading.Event()
@@ -343,6 +348,8 @@ class PrefetchIterator:
     def _transfer(self, item):
         if item is _END or isinstance(item, _WorkerError):
             return item
+        if self._put_fn is not None:
+            return self._put_fn(item)
         if self._pack and isinstance(item, dict):
             packed, layout, extras = pack_batch(item)
             out = unpack_batch(self._to_device(packed), layout)

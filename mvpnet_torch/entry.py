@@ -129,13 +129,14 @@ def train_entry(device=None, cfg: Config | None = None, seed: int = 0):
     its metrics; ``step(batch)`` runs it on a given device batch."""
     from mvpnet_torch.data.pipeline import PrefetchIterator, build_dataset
     from mvpnet_torch.train.checkpoint import trainable_parameters
-    from mvpnet_torch.train.loop import check_single_device, set_train_mode
+    from mvpnet_torch.dist.mesh import make_mesh
+    from mvpnet_torch.train.loop import set_train_mode
     from mvpnet_torch.train.solver import build_optimizer
     from mvpnet_torch.train.step import make_train_step
 
     dev = resolve_device(device)
     cfg = cfg or load_config(TRAIN_CONFIG, TRAIN_OVERRIDES)
-    check_single_device(cfg)
+    make_mesh(cfg.mesh)  # one process: a mesh over several ranks raises
     model, loss_fn, metric_fn = build_model(cfg, seed=seed)
     model = model.to(dev)
     set_train_mode(model, cfg)

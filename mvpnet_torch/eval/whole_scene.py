@@ -207,16 +207,18 @@ def evaluate_scenes(
 ) -> dict:
     """Per-scene prediction, confusion matrix and optional benchmark export.
 
-    With ``fused``, scenes go through the single-device scene-view-set
-    estimator (eval/scene_fused.py); otherwise through ``predict_scene``.
-    The space-sharded estimator (``mesh``) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the space-sharded whole-scene estimator is not ported yet (ROADMAP.md Queue 1, multi-GPU)"
-        )
+    With a ``mesh`` (``dist/mesh.py``: a process mesh or the loopback
+    one), scenes go through the space-sharded estimator
+    (eval/sharded_scene.py); with ``fused``, through the single-device
+    scene-view-set estimator (eval/scene_fused.py); otherwise through
+    ``predict_scene``."""
     model.eval()
     evaluator = Evaluator(cfg.data.num_classes, cfg.data.ignore_label)
-    if fused:
+    if mesh is not None:
+        from mvpnet_torch.eval.sharded_scene import build_sharded_scene_fns, predict_scene_sharded
+
+        sharded_fns = build_sharded_scene_fns(model, cfg, mesh)
+    elif fused:
         from mvpnet_torch.eval.scene_fused import build_scene_fused_fns, predict_scene_fused
 
         fused_fns = build_scene_fused_fns(model, cfg)
@@ -224,7 +226,9 @@ def evaluate_scenes(
         forward_fn = make_forward(model, cfg)
 
     for scene in scenes:
-        if fused:
+        if mesh is not None:
+            logits = predict_scene_sharded(model, cfg, scene, mesh, fns=sharded_fns)
+        elif fused:
             logits = predict_scene_fused(model, cfg, scene, fns=fused_fns)
         else:
             logits = predict_scene(model, cfg, scene, batch_size=batch_size, forward_fn=forward_fn)

@@ -10,7 +10,11 @@ the configs). Normalization runs in f32 and returns the compute dtype.
 BatchNorm follows flax's ``nnx.BatchNorm`` (momentum 0.9, eps 1e-5): in
 train mode it normalizes with the batch statistics (biased variance, in f32,
 over all leading dims) and moves its running statistics by
-``ra = 0.9 * ra + 0.1 * stat``, with the biased variance too.
+``ra = 0.9 * ra + 0.1 * stat``, with the biased variance too. Given a
+mesh that syncs (``dist.mesh.install``), its train-mode statistics are
+global: it all-reduces the per-channel sum, sum of squares and count over
+every rank, with a gradient through them, and normalizes with flax's mean
+and E[x^2] - E[x]^2; without one it runs ``F.batch_norm`` as before.
 """
 from __future__ import annotations
 
@@ -87,7 +91,8 @@ class BatchNorm(nn.Module):
 
     ``track_running_stats = False`` keeps the running statistics as they are
     in train mode (the recomputed forward of a rematerialized 2D net,
-    ``models/fusion.py``)."""
+    ``models/fusion.py``). ``mesh`` (``dist.mesh.install``): train-mode
+    statistics over every rank when it syncs."""
 
     momentum = 0.9  # flax's: ra = momentum * ra + (1 - momentum) * stat
 
@@ -95,6 +100,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.track_running_stats = True
+        self.mesh = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -103,7 +109,9 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape
         x2 = x.reshape(-1, shape[-1]).float()
-        if self.training:
+        if self.training and self.mesh is not None and self.mesh.syncs:
+            y = self._global_batch_norm(x2)
+        elif self.training:
             # normalize with the biased batch variance (F.batch_norm does);
             # its running update would take the unbiased one, so the update
             # is computed here
@@ -116,6 +124,21 @@ class BatchNorm(nn.Module):
         else:
             y = F.batch_norm(x2, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
         return y.reshape(shape).to(x.dtype)
+
+    def _global_batch_norm(self, x2: torch.Tensor) -> torch.Tensor:
+        """Train-mode BN over the global batch: one all-reduce of [sum,
+        sum of squares, count], differentiable in the sums."""
+        c = x2.shape[1]
+        count = torch.full((1,), float(x2.shape[0]), device=x2.device)
+        stats = self.mesh.all_sum(torch.cat([x2.sum(0), (x2 * x2).sum(0), count]), grad=True)
+        n = stats[2 * c].detach()
+        mean = stats[:c] / n
+        var = (stats[c : 2 * c] / n - mean * mean).clamp_min(0.0)
+        if self.track_running_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        return (x2 - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
 
 class GroupNorm(nn.Module):
@@ -138,12 +161,14 @@ class Dropout(nn.Module):
     """flax ``nnx.Dropout``: in train mode keep each value with probability
     1 - rate and scale kept values by 1 / (1 - rate). The mask draws from an
     explicit ``torch.Generator`` (``generator``, on the input's device),
-    seeded with 0 at the first train-mode call; setting it to None starts
-    the masks again."""
+    seeded at the first train-mode call with 0, or with the rank of the
+    installed ``mesh`` (``dist.mesh.install``), so ranks draw their own
+    masks; setting it to None starts the masks again."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.mesh = None
         self.generator: torch.Generator | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -152,7 +177,8 @@ class Dropout(nn.Module):
         if self.rate >= 1.0:
             return torch.zeros_like(x)
         if self.generator is None or self.generator.device != x.device:
-            self.generator = torch.Generator(device=x.device).manual_seed(0)
+            seed = 0 if self.mesh is None else self.mesh.rank
+            self.generator = torch.Generator(device=x.device).manual_seed(seed)
         keep_prob = 1.0 - self.rate
         keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -86,12 +86,13 @@ def build_model(cfg: Config, *, seed: int = 0):
     return (model, *loss_and_metrics(cfg))
 
 
-def loss_and_metrics(cfg: Config):
+def loss_and_metrics(cfg: Config, mesh=None):
     """(loss_fn, metric_fn) of ``cfg.model.name``: cross-entropy, accuracy
     and the confusion matrix of the 3D logits (``mvpnet_3d``, ``pn2ssg``) or
     of the per-view 2D logits against ``seg_label_2d`` (``sem_seg_2d``);
     ``mvpnet_3d`` adds ``aux_2d_loss_weight`` times the 2D logits'
-    cross-entropy."""
+    cross-entropy. With a ``mesh`` that syncs, each term is global over the
+    ranks (``train/metrics.py``)."""
     ignore = cfg.data.ignore_label
     aux_w = cfg.model.aux_2d_loss_weight if cfg.model.name == "mvpnet_3d" else 0.0
     if cfg.model.name == "sem_seg_2d":
@@ -103,16 +104,16 @@ def loss_and_metrics(cfg: Config):
 
     def loss_fn(out, batch):
         logits, label = logits_and_label(out, batch)
-        loss = M.cross_entropy(logits, label, ignore)
+        loss = M.cross_entropy(logits, label, ignore, mesh)
         if aux_w > 0 and "seg_label_2d" in batch:
-            loss = loss + aux_w * M.cross_entropy(out[1], batch["seg_label_2d"], ignore)
+            loss = loss + aux_w * M.cross_entropy(out[1], batch["seg_label_2d"], ignore, mesh)
         return loss
 
     def metric_fn(out, batch):
         logits, label = logits_and_label(out, batch)
         return {
-            "accuracy": M.seg_accuracy(logits, label, ignore),
-            "confusion": M.confusion_matrix(logits, label, cfg.data.num_classes, ignore),
+            "accuracy": M.seg_accuracy(logits, label, ignore, mesh),
+            "confusion": M.confusion_matrix(logits, label, cfg.data.num_classes, ignore, mesh),
         }
 
     return loss_fn, metric_fn

@@ -1,6 +1,6 @@
 """2D-3D fusion: FeatureAggregation + MVPNet3D.
 
-Counterpart of ``mvpnet_tpu/models/fusion.py`` (its non-sharded branch):
+Counterpart of ``mvpnet_tpu/models/fusion.py``:
 
   images (B,V,H,W,3) -> UNet features (B*V,H,W,C2d) -> pixel feature cloud
   (B, V*H*W, C2d) at the unprojected positions image_xyz -> for each chunk
@@ -10,8 +10,11 @@ Counterpart of ``mvpnet_tpu/models/fusion.py`` (its non-sharded branch):
 Invalid pixels sit at the 1e6 sentinel from ``unproject_views``, so masking
 is positional. ``remat_2d`` (set by ``models.build`` from
 ``cfg.train.remat``) recomputes the 2D net in the backward pass through
-``torch.utils.checkpoint`` instead of storing its activations. The
-space-sharded fusion (``fusion_mesh``) of the JAX model is not ported yet.
+``torch.utils.checkpoint`` instead of storing its activations.
+``fusion_mesh`` (set by ``dist.train_sp.install_space_fusion``) routes the
+fusion kNN through the space group's ring (``sharded_fusion_gather``) and
+re-splits the 3D net's batch to whole chunks (``dist.train_sp.resplit``);
+the 3D logits are then this rank's ``local_share`` of the chunks.
 """
 from __future__ import annotations
 
@@ -71,6 +74,7 @@ class MVPNet3D(nn.Module):
             )
         self.net_3d = PN2SSG(cfg.pn2, gen=gen)
         self.remat_2d = False
+        self.fusion_mesh = None
 
     def _net_2d(self, x):
         if not (self.remat_2d and self.training and torch.is_grad_enabled()):
@@ -103,13 +107,32 @@ class MVPNet3D(nn.Module):
         pixel_feat = feat2d.reshape(B, V * H * W, feat2d.shape[-1])
         pixel_xyz = image_xyz.reshape(B, V * H * W, 3)
 
-        _, knn_idx = ops.knn(points, pixel_xyz, self.cfg.aggregation.k)
-        grouped_feat = ops.group_points(pixel_feat, knn_idx)  # (B,N,K,C2d)
-        grouped_xyz = ops.group_points(pixel_xyz, knn_idx)  # (B,N,K,3)
-
-        fused = self.aggregation(points, grouped_xyz, grouped_feat)
-        logits_3d = self.net_3d(points, fused)
+        mesh = self.fusion_mesh
+        if mesh is not None and mesh.space > 1:
+            logits_3d = self._sharded_3d(mesh, points, pixel_xyz, pixel_feat)
+        else:
+            _, knn_idx = ops.knn(points, pixel_xyz, self.cfg.aggregation.k)
+            grouped_feat = ops.group_points(pixel_feat, knn_idx)  # (B,N,K,C2d)
+            grouped_xyz = ops.group_points(pixel_xyz, knn_idx)  # (B,N,K,3)
+            fused = self.aggregation(points, grouped_xyz, grouped_feat)
+            logits_3d = self.net_3d(points, fused)
         return logits_3d, logits_2d.reshape(B, V, H, W, -1)
+
+    def _sharded_3d(self, mesh, points, pixel_xyz, pixel_feat):
+        """Space-sharded fusion and 3D net: this rank's N/S points of each
+        chunk fuse over the ring, then the 3D net runs on whole chunks;
+        returns the logits of this rank's ``local_share``."""
+        from mvpnet_torch.dist import train_sp
+
+        grouped_xyz, grouped_feat = train_sp.sharded_fusion_gather(
+            mesh, points, pixel_xyz, pixel_feat, self.cfg.aggregation.k
+        )
+        fused = self.aggregation(train_sp.point_slice(mesh, points), grouped_xyz, grouped_feat)
+        pts_3d, fused_3d = train_sp.resplit(mesh, points, fused)
+        logits_3d = self.net_3d(pts_3d, fused_3d)
+        if points.shape[0] % mesh.space:  # every chunk ran here: keep this rank's points
+            logits_3d = train_sp.point_slice(mesh, logits_3d)
+        return logits_3d
 
 
 @contextlib.contextmanager

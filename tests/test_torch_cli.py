@@ -108,7 +108,8 @@ def test_cli_warm_start_from_a_2d_run(run_2d, tmp_path):
 
 def test_cli_train_3d_then_test_3d_export(tmp_path, capsys):
     """test_3d restores the run's checkpoint and prints what evaluate_scenes
-    gives on the restored model; --export writes one NYU40 file a scene."""
+    gives on the restored model; --export writes one NYU40 file a scene;
+    --sharded prints what the space-sharded estimator gives on one rank."""
     out, export = str(tmp_path / "run"), str(tmp_path / "export")
     overrides = [*TINY, *WINDOWS, f"output_dir={out}"]
     train_3d.main(["--cfg", CFG_3D, "--device", "cpu", *overrides, *RUN])
@@ -123,8 +124,12 @@ def test_cli_train_3d_then_test_3d_export(tmp_path, capsys):
     nyu = np.loadtxt(os.path.join(export, f"{scenes[0].name}.txt"), dtype=np.int64)
     assert len(nyu) == len(scenes[0].points) and nyu.min() >= 0 and nyu.max() <= 40
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        test_3d.main(["--cfg", CFG_3D, "--device", "cpu", "--sharded", *overrides])
+    # --sharded without a launcher: the space-sharded estimator on one rank
+    capsys.readouterr()
+    test_3d.main(["--cfg", CFG_3D, "--device", "cpu", "--sharded", *overrides])
+    from mvpnet_torch.dist.mesh import make_mesh
+
+    assert _printed(capsys) == evaluate_scenes(_restored(cfg), cfg, scenes, mesh=make_mesh(cfg.mesh))
     with pytest.raises(SystemExit):
         test_3d.main(["--cfg", CFG_3D, "--device", "cpu", *TINY, f"output_dir={tmp_path / 'untrained'}"])
 

@@ -183,8 +183,13 @@ def test_evaluate_scenes_results_and_export(models, scenes, tmp_path):
     np.testing.assert_array_equal(exported, whole_scene.remap_to_nyu40(pred, cfg.data.ignore_label))
     fused = whole_scene.evaluate_scenes(model, cfg, [scene], fused=True)
     assert 0.0 <= fused["miou"] <= 1.0 and set(fused) == set(results)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, multi-GPU"):
-        whole_scene.evaluate_scenes(model, cfg, [scene], mesh=object())
+    # a mesh: the space-sharded estimator (here the loopback mesh of 2
+    # shards), the scene-view-set estimator of the fused mode
+    from mvpnet_torch.dist.mesh import make_mesh
+
+    sharded = whole_scene.evaluate_scenes(model, cfg, [scene], mesh=make_mesh(local=2))
+    assert set(sharded) == set(results)
+    np.testing.assert_allclose(sharded["miou"], fused["miou"], atol=1e-3)
 
 
 def test_scene_entry_loads_highres_config():

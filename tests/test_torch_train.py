@@ -570,20 +570,24 @@ def test_train_entry_on_cpu():
 
 
 def test_single_device_surfaces_raise(tmp_path):
-    """Meshes over several devices still raise; model.unet.torch_weights,
-    once a raise, now imports the torchvision encoder before training."""
-    from mvpnet_torch.train.loop import check_single_device, train
+    """Without a launcher, a mesh over several ranks raises (train() and
+    train_entry: one process is one rank); model.unet.torch_weights, once a
+    raise, imports the torchvision encoder before training."""
+    from mvpnet_torch.dist.mesh import make_mesh
+    from mvpnet_torch.train.loop import train
     from tests.test_torch_models_2d import _torchvision_sd
 
     for over in (["mesh.space=2"], ["mesh.data=4"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_single_device(load_config(TRAIN_CONFIG, over))
+        with pytest.raises(ValueError, match="ranks, have 1"):
+            train(load_config(TRAIN_CONFIG, TINY + over + [f"output_dir={tmp_path / 'mesh'}"]), device="cpu")
+        with pytest.raises(ValueError, match="python -m torch.distributed.run"):
+            train_entry(device="cpu", cfg=load_config(TRAIN_CONFIG, over))
     unet = dict(base_channels=8, stage_channels=(8, 16, 16, 32), stage_blocks=(1, 1, 1, 1))
     sd = _torchvision_sd(np.random.default_rng(0), unet)
     np.savez(tmp_path / "r34.npz", **sd)
     cfg = load_config(TRAIN_CONFIG, TINY + [f"model.unet.torch_weights={tmp_path / 'r34.npz'}",
                                             f"output_dir={tmp_path / 'run'}", "model.pretrained_2d="])
-    check_single_device(cfg)
+    assert make_mesh(cfg.mesh).world == 1
     model, _ = train(cfg, max_steps=0, device="cpu")
     enc = model.net_2d.encoder
     assert torch.equal(enc.stem.weight, torch.from_numpy(sd["conv1.weight"]))
