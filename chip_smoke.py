@@ -134,11 +134,17 @@ Phases, each of which fails the run with a nonzero exit:
   8. dist: the multi-device layer (mvpnet_torch/dist) on the one card:
        (a) cli.train_3d under python -m torch.distributed.run --standalone
            --nproc_per_node 1 at the training config (mesh.data=1, 3 steps,
-           one validation batch): its log must name backend nccl, world 1,
-           device cuda:0, its kernel launches must be the chunk path's a
-           forward, and its step losses must equal an in-process train() of
-           the same config within DIST_LOSS_RTOL; then cli.test_3d --sharded
-           (mesh.space=1) under the launcher on that run prints a mIoU;
+           one validation batch) in the deterministic mode
+           (train.deterministic, CUBLAS_WORKSPACE_CONFIG in its
+           environment): its log must name backend nccl, world 1, device
+           cuda:0, its kernel launches must be the chunk path's a forward,
+           and its step losses must equal two in-process train() runs of the
+           same config, the first step bit for bit and the rest within
+           DIST_LOSS_RTOL, while the two in-process runs must be equal bit
+           for bit; two in-process runs in the default mode print their
+           spread; train_entry's step timed in both modes; then
+           cli.test_3d --sharded (mesh.space=1) under the launcher on that
+           run prints a mIoU;
        (b) the ring of dist/fusion.py on the loopback mesh at space 2 and 4
            over the training config's sharded-scene shapes (4 windows of
            8192 points a shard, the 12-view set of a synthetic validation
@@ -146,16 +152,29 @@ Phases, each of which fails the run with a nonzero exit:
            of row 1 a pass, distances and picks equal bit for bit to the
            unsharded ops.knn; a hop, the unsharded search and a pass timed;
        (c) predict_scene_sharded on the loopback mesh at space 2 with (a)'s
-           weights on that scene against predict_scene_fused (cli.export_3d's
-           margin rule), its launches a pass and ms a pass.
+           weights on that scene against predict_scene_fused: its launches
+           a pass and ms a pass, both estimators' agreement in bf16 held to
+           cli.export_3d's margin rule with a tie band of a few bf16 grid
+           steps at the top logit (on 3-step weights the logits reach
+           1e3-1e5, where bf16 rounding exceeds the rule's absolute band),
+           then in f32 on the same weights held to the rule as it is.
      It prints the {"dist": ...} line.
+  9. e2e: mvpnet_torch.e2e_run's main in process (E2E_ARGS: a few steps of
+     2D pretraining and of the warm-started fusion training at full width on
+     two synthetic scenes, whole-scene evaluation of one held-out scene, the
+     sharded estimator on the loopback mesh at space 2 beside the fused
+     one): every results.json key, every mIoU in [0, 1], the 3D stage's
+     launches the chunk path's a forward, every kernel of the whole-scene
+     path launched, the sharded-against-fused agreement printed. It prints
+     the {"e2e": ...} line.
 Then it prints the {"kernels": [...]} line (seven kernels and the prep of
 rows 6 and 7, "morton_prep": their launches, each row's launches on the
 recipe's paths under "recipe_launches",
 times and bounds on the scene path, the chunk path's under "chunk_path",
 the train path's under "train_path", knn_prepared's under "fused_path";
 rows 6 and 7 at the train shape, row 6's subgroup gate under "scene_path",
-each row's launches on the dist phase's paths under "dist_launches"),
+each row's launches on the dist phase's paths under "dist_launches", on
+the e2e phase's stages under "e2e_launches"),
 the card line, and last
 {"ok": true, "device": {...}}.
 Without CUDA, or without the mvpnet_torch package beside it, it exits
@@ -212,19 +231,33 @@ SYNTHETIC = ["data.name=synthetic"]
 CLI_STEPS = 3
 # /predict requests of the serve step, on example_batch seeds 0 to SERVE_REQUESTS - 1
 SERVE_REQUESTS = 5
-# the dist phase: steps of the launched and the in-process training runs; the
-# largest relative difference of their step losses after the first, which
-# must be equal (the same program on the same card: one rank's DDP all-reduce
-# is a copy, but the backward's atomics (index_add_, cuDNN) sum in no fixed
-# order, and Adam's first updates are lr * sign(g), so a gradient element near
-# zero can move a weight by 2 lr; two in-process runs part the same way, and
-# their spread is printed beside it); seconds a launched command may take;
-# the ring's space sizes and the sharded scene's
+# the dist phase: steps of the launched and the in-process training runs, all
+# in the deterministic mode (train.deterministic; cuBLAS needs
+# CUBLAS_WORKSPACE_CONFIG, set before the first cuBLAS call); the largest
+# relative difference of the launched run's step losses from the in-process
+# run's after the first, which must be equal (one rank's DDP all-reduce is a
+# copy); two in-process runs must be equal bit for bit. Two more in-process
+# runs in the default mode show its spread (the backward's atomics sum in no
+# fixed order, and Adam's first updates are lr * sign(g)), with no bound;
+# seconds a launched command may take; the ring's space sizes and the
+# sharded scene's
 DIST_STEPS = 3
-DIST_LOSS_RTOL = 2e-2
+DIST_LOSS_RTOL = 1e-4
+CUBLAS_WORKSPACE_CONFIG = ":4096:8"
 DIST_TIMEOUT = 300
 DIST_RING_SPACES = (2, 4)
 DIST_SCENE_SPACE = 2
+# (c)'s second, f32 comparison on the same weights
+DIST_SCENE_F32 = ["model.unet.dtype=float32", "model.pn2.dtype=float32"]
+# the e2e phase: e2e_run.main in process, a few steps of each stage at full
+# width on a small synthetic corpus, validation cut to E2E_VAL_STEPS batches,
+# whole-scene evaluation of one held-out scene
+E2E_STEPS = 4
+E2E_VAL_STEPS = 2
+E2E_ARGS = ["--steps-2d", str(E2E_STEPS), "--steps-3d", str(E2E_STEPS), "--eval-scenes", "1", "--scenes", "2",
+            "--objects", "6", "--seed", "0", f"train.val_steps={E2E_VAL_STEPS}"]
+E2E_KEYS = {"val_2d_miou", "val_3d_miou", "whole_scene_single", "whole_scene_sharded", "steps_2d", "steps_3d",
+            "devices", "eval_scenes", "seed", "zero_iou_classes", "absent_classes", "seconds", "launches"}
 # the fusion kNN's kernel for each ops.set_fusion_variant
 VARIANT_KERNEL = {"demand": "knn_fusion", "gated": "knn_gated", "resident": "knn_resident"}
 TPU_KERNELS = {
@@ -1863,14 +1896,16 @@ def read_losses(run_dir: str) -> list[float]:
 
 def launch(cmd: list) -> subprocess.Popen:
     """Start a command line under torch.distributed.run, one rank on this
-    card (its output in temporary files, read by ``finish``)."""
+    card (its output in temporary files, read by ``finish``), with the cuBLAS
+    workspace that the deterministic mode needs."""
     import tempfile
 
     root = os.path.dirname(os.path.abspath(__file__))
     argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", *cmd]
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=CUBLAS_WORKSPACE_CONFIG)
     # a session of its own, so that ``stop`` can kill what the launcher leaves
-    proc = subprocess.Popen(argv, stdout=out, stderr=err, text=True, cwd=root, start_new_session=True)
+    proc = subprocess.Popen(argv, stdout=out, stderr=err, text=True, cwd=root, env=env, start_new_session=True)
     proc.files = (out, err)
     return proc
 
@@ -1921,29 +1956,39 @@ def log_span_s(text: str) -> float:
 
 
 def dist_launcher_runs(torch, ops, directory: str) -> dict:
-    """(a): cli.train_3d under the launcher (NCCL, world 1) against an
-    in-process train() of the same config, then cli.test_3d --sharded under
-    the launcher."""
+    """(a): cli.train_3d under the launcher (NCCL, world 1) against two
+    in-process train() runs of the same config, all in the deterministic
+    mode, beside two in-process runs in the default mode; then cli.test_3d
+    --sharded under the launcher."""
     import ast
     import re
 
     from mvpnet_torch.config import load_config
     from mvpnet_torch.entry import TRAIN_CONFIG
-    from mvpnet_torch.train.loop import train
+    from mvpnet_torch.train.loop import set_deterministic, train
 
     over = SYNTHETIC + [f"train.max_steps={DIST_STEPS}", "train.log_every=1", "train.val_steps=1",
                         "data.num_workers=1", "model.pretrained_2d=", "mesh.data=1"]
     run = os.path.join(directory, "launched")
     t0 = time.perf_counter()
-    proc = launch(["-m", "mvpnet_torch.cli.train_3d", "--cfg", TRAIN_CONFIG, *over, f"output_dir={run}"])
-    runs, out = [], {}
+    proc = launch(["-m", "mvpnet_torch.cli.train_3d", "--cfg", TRAIN_CONFIG, *over, "train.deterministic=true",
+                   f"output_dir={run}"])
+    runs, out = {}, {}
     try:
-        for i in range(2):  # meanwhile the in-process run, twice: its own spread
-            local = os.path.join(directory, f"in_process_{i}")
-            t1 = time.perf_counter()
-            train(load_config(TRAIN_CONFIG, over + [f"output_dir={local}"]), device="cuda")
-            out[f"in_process_train_{i}_s"] = time.perf_counter() - t1
-            runs.append(read_losses(local))
+        # meanwhile the in-process run, twice in each mode: the deterministic
+        # mode's repeat and the default mode's spread
+        for mode in ("deterministic", "default"):
+            for i in range(2):
+                local = os.path.join(directory, f"in_process_{mode}_{i}")
+                cfg = load_config(TRAIN_CONFIG, over + [f"train.deterministic={mode == 'deterministic'}",
+                                                        f"output_dir={local}"])
+                t1 = time.perf_counter()
+                try:
+                    train(cfg, device="cuda")
+                finally:
+                    set_deterministic(False)
+                out[f"in_process_{mode}_{i}_s"] = time.perf_counter() - t1
+                runs.setdefault(mode, []).append(read_losses(local))
         finish(proc, "cli.train_3d")
     finally:
         stop(proc)  # still running only when the in-process runs failed
@@ -1961,20 +2006,25 @@ def dist_launcher_runs(torch, ops, directory: str) -> dict:
     if counts != {k: n * forwards for k, n in TRAIN_LAUNCHES.items()}:
         fail(f"cli.train_3d under the launcher: launches {counts}, want {TRAIN_LAUNCHES} x {forwards}")
     got = read_losses(run)
-    want = runs[0]
-    if len(got) != DIST_STEPS or any(len(r) != DIST_STEPS for r in runs) or not all(map(np.isfinite, got)):
+    det, default = runs["deterministic"], runs["default"]
+    if len(got) != DIST_STEPS or any(len(r) != DIST_STEPS for r in det + default) or not all(map(np.isfinite, got)):
         fail(f"step losses: launched {got}, in process {runs}")
 
     def rel(a, b):
         return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
-    out.update(losses=got, in_process_losses=runs, max_rel_loss_delta=rel(got, want),
-               in_process_spread=rel(runs[1], runs[0]), first_step_equal=got[0] == want[0])
-    print(f"  (a) NCCL world 1: losses {got} against {want} in process: first step "
-          f"{'equal' if got[0] == want[0] else 'differs'}, max rel {out['max_rel_loss_delta']:.2e} (two in-process "
-          f"runs: {out['in_process_spread']:.2e}); launches a step {out['launches_per_step']}", flush=True)
-    if got[0] != want[0] or out["max_rel_loss_delta"] > DIST_LOSS_RTOL:
-        fail(f"launched losses {got} differ from the in-process run's {want} beyond the first step's equality "
+    out.update(losses=got, in_process_losses=det, default_mode_losses=default, max_rel_loss_delta=rel(got, det[0]),
+               in_process_equal=det[0] == det[1], default_mode_spread=rel(default[1], default[0]),
+               first_step_equal=got[0] == det[0][0])
+    print(f"  (a) deterministic mode, NCCL world 1: losses {got} against {det[0]} in process: first step "
+          f"{'equal' if out['first_step_equal'] else 'differs'}, max rel {out['max_rel_loss_delta']:.2e}; two "
+          f"in-process runs {'equal bit for bit' if out['in_process_equal'] else f'differ: {det[1]}'}; default "
+          f"mode's two in-process runs {default[0]} and {default[1]}: spread {out['default_mode_spread']:.2e}; "
+          f"launches a step {out['launches_per_step']}", flush=True)
+    if not out["in_process_equal"]:
+        fail(f"deterministic mode: two in-process runs gave {det[0]} and {det[1]}")
+    if not out["first_step_equal"] or out["max_rel_loss_delta"] > DIST_LOSS_RTOL:
+        fail(f"launched losses {got} differ from the in-process run's {det[0]} beyond the first step's equality "
              f"or {DIST_LOSS_RTOL}")
 
     t0 = time.perf_counter()
@@ -1992,6 +2042,62 @@ def dist_launcher_runs(torch, ops, directory: str) -> dict:
           f"--sharded (space=1): mIoU {results['miou']:.4f} in {out['test_3d_sharded_s']:.1f} s "
           f"({out['test_3d_sharded_log_s']:.1f} s logged)", flush=True)
     return out
+
+
+def scatter_ms(torch, ops) -> dict:
+    """(a): the sums whose order the deterministic mode fixes (a sorted
+    path in place of atomics), timed with CUDA events: index_add_ of the
+    kNN backward at the train shape (8 x 8192 x 3 rows of 3 into 8 x
+    57,600) and of the scene's logit accumulation (4 windows of 8192
+    points, 20 logits, into 300,000 points), and group_points forward and
+    backward at the fusion gather (8 x 8192 x 3 picks of 64 bf16 features
+    out of 8 x 57,600 pixels)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def index_add(rows: int, width: int, n: int):
+        idx = torch.randint(0, n, (rows,), generator=g, device="cuda")
+        src = torch.randn(rows, width, generator=g, device="cuda")
+        acc = torch.zeros(n, width, device="cuda")
+        return cuda_ms(torch, lambda: acc.index_add_(0, idx, src), KERNEL_REPS)
+
+    feat = torch.randn(8, 57600, 64, generator=g, device="cuda").bfloat16().requires_grad_()
+    idx = torch.randint(0, 57600, (8, 8192, 3), generator=g, device="cuda")
+    grad = torch.randn(8, 8192, 3, 64, generator=g, device="cuda").bfloat16()
+    return {"index_add_knn_backward": index_add(8 * 8192 * 3, 3, 8 * 57600),
+            "index_add_scene_accumulation": index_add(4 * 8192, 20, 300_000),
+            "group_points_forward_backward": cuda_ms(
+                torch, lambda: torch.autograd.grad(ops.group_points(feat, idx), feat, grad), KERNEL_REPS)}
+
+
+def mode_step_ms(torch, ops) -> dict:
+    """(a): train_entry's step at the training config, TRAIN_STEPS steps in
+    the default mode, then TRAIN_STEPS more in the deterministic mode, on
+    one model: each mode's median step ms (its first step left out), and
+    ``scatter_ms`` in each mode."""
+    from mvpnet_torch.entry import train_entry
+    from mvpnet_torch.train.loop import set_deterministic
+
+    step, (model, optimizer, batches) = train_entry(seed=0)
+    out, scatters = {}, {}
+    try:
+        out["default"] = train_steps(torch, ops, step, batches, model, optimizer, 1, label="default mode")
+        scatters["default"] = scatter_ms(torch, ops)
+        set_deterministic(device="cuda")
+        try:
+            out["deterministic"] = train_steps(torch, ops, step, batches, model, optimizer, 1,
+                                               label="deterministic mode")
+            scatters["deterministic"] = scatter_ms(torch, ops)
+        finally:
+            set_deterministic(False)
+    finally:
+        batches.close()
+    ms = {mode: statistics.median(r["step_ms"][1:]) for mode, r in out.items()}
+    print(f"  (a) train step ms median: default mode {ms['default']:.2f}, deterministic mode "
+          f"{ms['deterministic']:.2f} ({ms['deterministic'] / ms['default']:.2f}x); scatters ms (default, "
+          f"deterministic): " + ", ".join(f"{k} {scatters['default'][k]:.4f}, {scatters['deterministic'][k]:.4f}"
+                                          for k in scatters["default"]), flush=True)
+    return {"step_ms_median": ms, "step_ms": {mode: r["step_ms"] for mode, r in out.items()},
+            "peak_memory_gib": {mode: r["peak_memory_gib"] for mode, r in out.items()}, "scatter_ms": scatters}
 
 
 def scene_cloud(torch, cfg, scene):
@@ -2055,45 +2161,73 @@ def ring_case(torch, ops, cfg, scene, S: int) -> dict:
 
 def sharded_scene_case(torch, ops, cfg, scene) -> dict:
     """(c): predict_scene_sharded on the loopback mesh at DIST_SCENE_SPACE
-    with the launched run's weights, against predict_scene_fused on the
-    same scene under cli.export_3d's margin rule; its launches a pass."""
-    from mvpnet_torch.cli.export_3d import MIN_CONFIDENT_AGREEMENT, agreement
+    with the launched run's weights against predict_scene_fused on the
+    same scene: its launches and ms a pass and both estimators' agreement
+    in the config's bf16, held to cli.export_3d's margin rule with a tie
+    band that scales with the logits (bf16_tie_band: BF16_TIE_STEPS bf16
+    grid steps at the top logit, at least TAU; on 3-step weights eval-mode
+    logits reach 1e3-1e5, where the grid step exceeds TAU); then both again
+    in f32 (DIST_SCENE_F32) on the same weights, held to the rule with TAU.
+    The largest relative top-2 margin of the points where the two differ
+    in bf16 is printed beside them."""
+    from mvpnet_torch.cli.export_3d import BF16_TIE_STEPS, MIN_CONFIDENT_AGREEMENT, TAU, agreement, bf16_tie_band
     from mvpnet_torch.cli.test_3d import restore
+    from mvpnet_torch.config import load_config
     from mvpnet_torch.dist.mesh import make_mesh
+    from mvpnet_torch.entry import TRAIN_CONFIG
     from mvpnet_torch.eval.scene_fused import build_scene_fused_fns, predict_scene_fused
     from mvpnet_torch.eval.sharded_scene import build_sharded_scene_fns, enumerate_scene_chunks, predict_scene_sharded
 
     S = DIST_SCENE_SPACE
-    model, _ = restore(cfg, "cuda")
     mesh = make_mesh(local=S)
-    fns, fused_fns = build_sharded_scene_fns(model, cfg, mesh), build_scene_fused_fns(model, cfg)
-    predict_scene_sharded(model, cfg, scene, mesh, fns=fns)  # warm-up
-    predict_scene_fused(model, cfg, scene, fns=fused_fns)
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    got = predict_scene_sharded(model, cfg, scene, mesh, fns=fns)
-    torch.cuda.synchronize()
-    sharded_s = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    t0 = time.perf_counter()
-    want = predict_scene_fused(model, cfg, scene, fns=fused_fns)
-    fused_s = time.perf_counter() - t0
+
+    def both(cfg, timed: bool, bf16: bool):
+        model, _ = restore(cfg, "cuda")
+        fns, fused_fns = build_sharded_scene_fns(model, cfg, mesh), build_scene_fused_fns(model, cfg)
+        if timed:
+            predict_scene_sharded(model, cfg, scene, mesh, fns=fns)  # warm-up
+            predict_scene_fused(model, cfg, scene, fns=fused_fns)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = predict_scene_sharded(model, cfg, scene, mesh, fns=fns)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        t0 = time.perf_counter()
+        want = predict_scene_fused(model, cfg, scene, fns=fused_fns)
+        fused_s = time.perf_counter() - t0
+        if not np.isfinite(got).all():
+            fail("predict_scene_sharded: non-finite logits")
+        top = np.sort(want, axis=-1)
+        differ = got.argmax(-1) != want.argmax(-1)
+        margin = (top[:, -1] - top[:, -2]) / np.maximum(np.abs(top[:, -1]), 1e-6)
+        agree = agreement(got[None], want[None], tau=bf16_tie_band(want[None]) if bf16 else TAU)
+        agree["differ_max_rel_margin"] = float(margin[differ].max()) if differ.any() else 0.0
+        agree["median_abs_logit"] = float(np.median(np.abs(want)))
+        return agree, launches, sharded_s, fused_s
+
+    agree, launches, sharded_s, fused_s = both(cfg, timed=True, bf16=True)
     passes = -(-len(enumerate_scene_chunks(scene, cfg)) // (cfg.eval.chunks_per_shard * S))
     per_pass = dict.fromkeys(launches, 0) | {"knn_fusion": S * S, "fps": 4 * S, "ball_query": 4 * S, "knn": 4 * S}
     if launches != {k: n * passes for k, n in per_pass.items()}:
         fail(f"predict_scene_sharded: launches {launches}, want {per_pass} x {passes} passes")
-    if not np.isfinite(got).all():
-        fail("predict_scene_sharded: non-finite logits")
-    agree = agreement(got[None], want[None])
+    agree32 = both(load_config(TRAIN_CONFIG, SYNTHETIC + DIST_SCENE_F32 + [f"output_dir={cfg.output_dir}"]),
+                   timed=False, bf16=False)[0]
     out = {"space": S, "points": len(scene.points), "passes": passes, "launches_per_pass": per_pass,
-           "ms_a_pass": 1e3 * sharded_s / passes, "sharded_s": sharded_s, "fused_s": fused_s, **agree}
+           "ms_a_pass": 1e3 * sharded_s / passes, "sharded_s": sharded_s, "fused_s": fused_s, **agree, "f32": agree32}
     print(f"  (c) predict_scene_sharded, space {S}: {passes} passes of {cfg.eval.chunks_per_shard * S} windows, "
           f"{out['ms_a_pass']:.1f} ms a pass ({sharded_s:.3f} s; fused {fused_s:.3f} s); launches a pass {per_pass}; "
-          f"against the fused estimator: argmax {agree['agreement']:.4f}, {agree['confident_agreement']:.4f} on "
-          f"margin decisions, max |delta| {agree['max_abs']:.3e}", flush=True)
+          f"against the fused estimator in bf16: argmax {agree['agreement']:.5f}, {agree['confident_agreement']:.5f} "
+          f"on the {agree['confident_share']:.5f} of decisions beyond {BF16_TIE_STEPS} bf16 steps, max |delta| "
+          f"{agree['max_abs']:.3e} on logits of median |{agree['median_abs_logit']:.0f}|"
+          f", the points that differ within {agree['differ_max_rel_margin']:.4f} of their top logit; in f32: argmax "
+          f"{agree32['agreement']:.5f}, {agree32['confident_agreement']:.5f} on margin decisions, max |delta| "
+          f"{agree32['max_abs']:.3e}", flush=True)
     if agree["confident_agreement"] < MIN_CONFIDENT_AGREEMENT:
-        fail(f"sharded scene disagrees with the fused estimator beyond the margin rule: {agree}")
+        fail(f"sharded scene disagrees with the fused estimator beyond the bf16 tie band: {agree}")
+    if agree32["confident_agreement"] < MIN_CONFIDENT_AGREEMENT:
+        fail(f"sharded scene disagrees with the fused estimator beyond the margin rule in f32: {agree32}")
     return out
 
 
@@ -2112,7 +2246,7 @@ def dist_phase(torch) -> dict:
     directory = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke_dist")
     shutil.rmtree(directory, ignore_errors=True)
     try:
-        summary = {"nccl_world1": dist_launcher_runs(torch, ops, directory)}
+        summary = {"nccl_world1": dist_launcher_runs(torch, ops, directory), "modes": mode_step_ms(torch, ops)}
         cfg = load_config(TRAIN_CONFIG, SYNTHETIC + [f"output_dir={directory}/launched"])
         scene = build_dataset(cfg.data, batch_size=1, training=False, seed=0).scenes[0]
         with torch.no_grad():
@@ -2125,6 +2259,64 @@ def dist_phase(torch) -> dict:
     return summary
 
 
+def e2e_phase(torch) -> dict:
+    """9: mvpnet_torch.e2e_run's main in process (2D pretraining, the warm
+    started fusion training, whole-scene evaluation, the sharded estimator
+    against the fused one), E2E_ARGS: every results.json key, every mIoU in
+    [0, 1], no launch in the 2D stage, the chunk path's launches a forward
+    of the 3D stage (its steps and validation batches), every kernel of the
+    whole-scene path launched; the launch counts set to 0 just before."""
+    import shutil
+
+    from mvpnet_torch import e2e_run, ops
+
+    t0 = time.perf_counter()
+    directory = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke_e2e")
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        ops.reset_launch_counts()
+        results = e2e_run.main(["--out", directory, *E2E_ARGS])
+        total = ops.launch_counts()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    if set(results) != E2E_KEYS:
+        fail(f"e2e_run results.json keys {sorted(results)}, want {sorted(E2E_KEYS)}")
+    single, sharded = results["whole_scene_single"], results["whole_scene_sharded"]
+    mious = [results["val_2d_miou"], results["val_3d_miou"], single["miou"], sharded["miou_sharded"],
+             sharded["miou_fused"]]
+    if not all(0.0 <= m <= 1.0 for m in mious):
+        fail(f"e2e_run mIoUs {mious}")
+    launches = results["launches"]
+    every = {k: sum(stage[k] for stage in launches.values()) for k in total}
+    if every != total:
+        fail(f"e2e_run stages' launches {launches} do not add up to the run's {total}")
+    if any(launches["train_2d"].values()):
+        fail(f"e2e_run 2D stage launched kernels: {launches['train_2d']}")
+    every_val = max(E2E_STEPS // 2, 1)  # e2e_run's train.val_every of the 3D stage
+    vals = sum(1 for s in range(1, E2E_STEPS + 1) if s % every_val == 0 or s == E2E_STEPS)
+    forwards = E2E_STEPS + vals * E2E_VAL_STEPS
+    if launches["train_3d"] != {k: n * forwards for k, n in TRAIN_LAUNCHES.items()}:
+        fail(f"e2e_run 3D stage: launches {launches['train_3d']}, want {TRAIN_LAUNCHES} x {forwards} forwards")
+    for stage in ("whole_scene", "whole_scene_sharded"):
+        if not all(launches[stage][k] for k in ("knn_fusion", "fps", "ball_query", "knn")):
+            fail(f"e2e_run {stage}: launches {launches[stage]}")
+    seconds = time.perf_counter() - t0
+    print(f"  e2e_run: 2D val mIoU {results['val_2d_miou']:.4f}, 3D val mIoU {results['val_3d_miou']:.4f}, "
+          f"whole-scene mIoU {single['miou']:.4f} ({results['zero_iou_classes']} classes at zero IoU); sharded "
+          f"against fused (space {sharded['space']}): argmax agreement {sharded['agreement']:.6f} over "
+          f"{sharded['points']} points, mIoU {sharded['miou_sharded']:.4f} / {sharded['miou_fused']:.4f}; launches "
+          f"a 3D step {TRAIN_LAUNCHES} ({forwards} forwards), stages {launches}; stage seconds "
+          f"{ {k: round(v, 1) for k, v in results['seconds'].items()} }; phase {seconds:.1f} s", flush=True)
+    return {"results": results, "forwards_3d": forwards, "seconds": seconds}
+
+
+def e2e_launches(summary: dict, name: str) -> dict:
+    """A kernel's launches in each stage of the e2e phase, and a 3D step's."""
+    stages = summary["results"]["launches"]
+    return {**{stage: counts[name] for stage, counts in stages.items()},
+            "train_3d_step": stages["train_3d"][name] / summary["forwards_3d"]}
+
+
 def dist_launches(summary: dict, name: str) -> dict:
     """A kernel's launches on each path of the dist phase."""
     out = {"nccl_train_step": summary["nccl_world1"]["launches_per_step"][name]}
@@ -2135,6 +2327,9 @@ def dist_launches(summary: dict, name: str) -> dict:
 
 
 def main() -> None:
+    # cuBLAS reads its workspace setting at its first call; the deterministic
+    # mode of the dist phase needs this one (the H100's default size)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE_CONFIG)
     import torch
 
     if not torch.cuda.is_available():
@@ -2177,6 +2372,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     print("dist phase:", flush=True)
     dist = dist_phase(torch)
+    torch.cuda.empty_cache()
+    print("e2e phase:", flush=True)
+    e2e = e2e_phase(torch)
 
     def path(row):  # a row's numbers, nested under another row of the same kernel
         return {k: v for k, v in row.items() if k not in ("name", "route", "source", "replaces")}
@@ -2196,6 +2394,7 @@ def main() -> None:
     for row in rows:
         row["recipe_launches"] = recipe_launches(recipe, row["name"])
         row["dist_launches"] = dist_launches(dist, row["name"])
+        row["e2e_launches"] = e2e_launches(e2e, row["name"])
     print(json.dumps({"slice": summary}), flush=True)
     print(json.dumps({"scene": scene_summary}), flush=True)
     print(json.dumps({"train": train_summary}), flush=True)
@@ -2203,6 +2402,7 @@ def main() -> None:
     print(json.dumps({"recipe": recipe}), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"dist": dist}), flush=True)
+    print(json.dumps({"e2e": e2e}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -33,12 +33,17 @@ from mvpnet_torch.utils.logger import setup_logger
 # artifact's argmax must equal the eager one on every decision above it
 TAU = 0.5
 MIN_CONFIDENT_AGREEMENT = 0.9999
+# bf16 keeps 8 significant bits, so a logit x lies on a grid of step
+# 2^(floor(log2 |x|) - 7); two forwards that sum in another order part by a
+# few steps, which at large logits exceeds TAU
+BF16_TIE_STEPS = 4
 
 
 def agreement(got: np.ndarray, want: np.ndarray, tau: float = TAU) -> dict:
     """The artifact's logits ``got`` against the eager ``want`` (B, N, C):
     argmax agreement overall and on the decisions whose top-2 margin in
-    ``want`` exceeds ``tau`` (1.0 when there is none), the share of those
+    ``want`` exceeds ``tau`` (a scalar, or one a decision as
+    ``bf16_tie_band`` gives; 1.0 when there is none), the share of those
     decisions, and max |delta|."""
     same = got.argmax(-1) == want.argmax(-1)
     top2 = np.partition(want, -2, axis=-1)
@@ -49,6 +54,14 @@ def agreement(got: np.ndarray, want: np.ndarray, tau: float = TAU) -> dict:
         "confident_share": float(confident.mean()),
         "max_abs": float(np.abs(got - want).max()),
     }
+
+
+def bf16_tie_band(want: np.ndarray) -> np.ndarray:
+    """``agreement``'s tau for each decision of ``want`` (..., C) at bf16:
+    BF16_TIE_STEPS bf16 grid steps at its top logit, and never less than TAU."""
+    top = np.abs(want.max(-1)).astype(np.float64)
+    grid = np.exp2(np.floor(np.log2(np.maximum(top, np.finfo(np.float32).tiny))) - 7)
+    return np.maximum(TAU, BF16_TIE_STEPS * grid)
 
 
 def main(argv=None):

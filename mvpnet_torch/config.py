@@ -218,6 +218,11 @@ class TrainConfig:
     # into <output_dir>/profile; 0/0 disables
     profile_start: int = 0
     profile_stop: int = 0
+    # the port's own key: deterministic algorithms only (train.loop.
+    # set_deterministic), so that a run repeats bit for bit on one card;
+    # on CUDA it needs CUBLAS_WORKSPACE_CONFIG=:4096:8 in the environment.
+    # off by default (the default algorithms are faster)
+    deterministic: bool = False
 
 
 @dataclass(frozen=True)

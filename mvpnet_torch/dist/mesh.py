@@ -240,8 +240,9 @@ def make_mesh(cfg=None, *, local: int | None = None) -> Mesh:
 
 def install(model, mesh: Mesh):
     """Give the model's BatchNorm layers the mesh (train-mode statistics
-    over every rank when it syncs) and its Dropout layers the rank (their
-    masks start from a generator seeded with it). Returns the model."""
+    over every rank when it syncs) and its Dropout layers too (each rank
+    draws the global batch's mask, the same on every rank, and keeps its
+    rows). Returns the model."""
     from mvpnet_torch.models.blocks import BatchNorm, Dropout
 
     for m in model.modules():

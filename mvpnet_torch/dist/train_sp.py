@@ -18,7 +18,8 @@ step is rebuilt exact against the unsharded one by hand:
     the points, the 3D net run on every chunk and the logits cut back to
     the rank's points (``resplit``); ``local_share`` cuts the labels the
     same way, so every element of the global batch is scored on exactly one
-    rank;
+    rank, and ``local_rows`` places the rank's chunks in the global batch
+    for the head's dropout mask;
   * BatchNorm, the loss and the metrics sum over every rank (``dist.mesh``,
     ``models/blocks.BatchNorm``, ``train/metrics``).
 
@@ -77,6 +78,19 @@ def local_share(mesh, x):
     if x.shape[0] % mesh.space == 0:
         return bootstrap.take(x, 0, mesh.space_rank, mesh.space)
     return point_slice(mesh, x)
+
+
+def local_rows(mesh, b_local: int) -> tuple[int, int]:
+    """(first, total): where the chunks that this rank's 3D net runs sit in
+    the global batch, for the head's dropout mask: the data rank holds
+    ``b_local`` chunks; ``local_share`` keeps b_local/S of them after the
+    all_to_all, and after the all-gather every space rank runs all of
+    them."""
+    first, total = mesh.data_rank * b_local, mesh.data * b_local
+    if b_local % mesh.space:
+        return first, total
+    b = b_local // mesh.space
+    return first + mesh.space_rank * b, total
 
 
 def sharded_fusion_gather(mesh, points, pixel_xyz, pixel_feat, k: int):

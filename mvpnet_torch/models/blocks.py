@@ -161,9 +161,16 @@ class Dropout(nn.Module):
     """flax ``nnx.Dropout``: in train mode keep each value with probability
     1 - rate and scale kept values by 1 / (1 - rate). The mask draws from an
     explicit ``torch.Generator`` (``generator``, on the input's device),
-    seeded at the first train-mode call with 0, or with the rank of the
-    installed ``mesh`` (``dist.mesh.install``), so ranks draw their own
-    masks; setting it to None starts the masks again."""
+    seeded with 0 at the first train-mode call; setting it to None starts
+    the masks again.
+
+    On a mesh (``dist.mesh.install``) every rank draws the mask of the
+    global batch from the same generator and keeps the rows it holds, so a
+    sharded step drops what the one-process step on that batch drops, and
+    the ranks' generators stay in step. ``rows=(first, total)`` says that
+    ``x`` holds rows [first, first + len(x)) of a global batch of ``total``
+    rows; by default they are this data rank's slice (``shard_batch``), or
+    the whole batch without a mesh."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -171,16 +178,20 @@ class Dropout(nn.Module):
         self.mesh = None
         self.generator: torch.Generator | None = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: tuple[int, int] | None = None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
         if self.generator is None or self.generator.device != x.device:
-            seed = 0 if self.mesh is None else self.mesh.rank
-            self.generator = torch.Generator(device=x.device).manual_seed(seed)
+            self.generator = torch.Generator(device=x.device).manual_seed(0)
+        n = x.shape[0]
+        if rows is None:
+            rows = (0, n) if self.mesh is None else (self.mesh.data_rank * n, self.mesh.data * n)
+        first, total = rows
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        draw = torch.rand((total, *x.shape[1:]), generator=self.generator, device=x.device)
+        keep = draw[first : first + n] < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

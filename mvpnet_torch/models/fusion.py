@@ -129,7 +129,7 @@ class MVPNet3D(nn.Module):
         )
         fused = self.aggregation(train_sp.point_slice(mesh, points), grouped_xyz, grouped_feat)
         pts_3d, fused_3d = train_sp.resplit(mesh, points, fused)
-        logits_3d = self.net_3d(pts_3d, fused_3d)
+        logits_3d = self.net_3d(pts_3d, fused_3d, rows=train_sp.local_rows(mesh, points.shape[0]))
         if points.shape[0] % mesh.space:  # every chunk ran here: keep this rank's points
             logits_3d = train_sp.point_slice(mesh, logits_3d)
         return logits_3d

@@ -105,11 +105,13 @@ class PN2SSG(nn.Module):
         # flax's default Linear init: lecun_normal (scale 1), zero bias
         self.head = make_linear(cfg.head_channels, cfg.num_classes, bias=True, gen=gen, scale=1.0)
 
-    def forward(self, xyz, features=None, valid_mask=None):
+    def forward(self, xyz, features=None, valid_mask=None, rows=None):
         """xyz (B, N, 3); features (B, N, C_in) or None; valid_mask optional
         (B, N) bool for padded inputs, used at SA level 0 only (masked FPS
-        selects only valid centroids, so coarser levels are all valid).
-        Returns per-point logits (B, N, num_classes) f32."""
+        selects only valid centroids, so coarser levels are all valid);
+        rows: the head dropout's place of these B chunks in the global
+        batch (``Dropout``). Returns per-point logits (B, N, num_classes)
+        f32."""
         xyz = xyz.float()
         if features is not None:
             features = features.to(self.dtype)
@@ -121,5 +123,5 @@ class PN2SSG(nn.Module):
         sparse_feat = feats[-1]
         for i, fp in enumerate(self.fp_layers):
             sparse_feat = fp(xyzs[-(i + 2)], xyzs[-(i + 1)], feats[-(i + 2)], sparse_feat)
-        out = self.dropout(self.head_mlp(sparse_feat))
+        out = self.dropout(self.head_mlp(sparse_feat), rows=rows)
         return linear(self.head, out, self.dtype).float()

@@ -159,8 +159,47 @@ def load_torch_resnet34_file(encoder: ResNet34Encoder, path: str) -> list[str]:
     return load_torch_resnet34(encoder, sd)
 
 
+def interp_matrix(n_in: int, n_out: int, device=None) -> torch.Tensor:
+    """(n_out, n_in) f32 weights of 1-D linear resizing with half-pixel
+    centers, as ``F.interpolate(mode="bilinear", align_corners=False)``
+    computes them for an output size: source = (dst + 0.5) n_in / n_out -
+    0.5, clamped at 0, split between its floor and the next index (the last
+    index alone at the edge)."""
+    dst = torch.arange(n_out, device=device, dtype=torch.float32)
+    src = ((dst + 0.5) * (n_in / n_out) - 0.5).clamp_min(0.0)
+    i0 = src.long()
+    i1 = torch.where(i0 < n_in - 1, i0 + 1, i0)
+    w1 = (src - i0)[:, None]
+    cols = torch.arange(n_in, device=device)
+    return torch.where(cols == i0[:, None], 1.0 - w1, 0.0) + torch.where(cols == i1[:, None], w1, 0.0)
+
+
+class BilinearResize(torch.autograd.Function):
+    """``F.interpolate(x, size, mode="bilinear", align_corners=False)`` on an
+    NCHW tensor with a backward that sums in a fixed order: the separable
+    product A_h^T g A_w of the two interpolation matrices
+    (``interp_matrix``), in f32. CUDA's own backward of the resize adds
+    with atomics, which the deterministic mode refuses; the forward is the
+    same call in both modes."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.in_hw, ctx.dtype = x.shape[2:], x.dtype
+        return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        a_h = interp_matrix(ctx.in_hw[0], g.shape[2], g.device)
+        a_w = interp_matrix(ctx.in_hw[1], g.shape[3], g.device)
+        return (a_h.t() @ (g.float() @ a_w)).to(ctx.dtype), None
+
+
 def _resize_to(x_nhwc, hw):
-    y = F.interpolate(x_nhwc.permute(0, 3, 1, 2), size=tuple(hw), mode="bilinear", align_corners=False)
+    x = x_nhwc.permute(0, 3, 1, 2)
+    if torch.are_deterministic_algorithms_enabled():
+        y = BilinearResize.apply(x, tuple(hw))
+    else:
+        y = F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=False)
     return y.permute(0, 2, 3, 1)
 
 

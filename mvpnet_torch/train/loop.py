@@ -16,6 +16,10 @@ the ranks; each data rank loads its slice of the global batch with its own
 seed; only rank 0 writes the config, the log file, the metrics and the
 checkpoints, and every rank waits for it before a resume. Without a
 launcher it is one process on one device, as before.
+
+``train.deterministic`` turns on ``set_deterministic`` for the rest of the
+process: two runs of one config on one card then give equal losses bit for
+bit, at some cost in speed (``PERF.md``).
 """
 from __future__ import annotations
 
@@ -36,6 +40,31 @@ from mvpnet_torch.train.solver import build_optimizer
 from mvpnet_torch.train.step import make_eval_step, make_train_step
 from mvpnet_torch.utils.logger import MetricLogger, setup_logger
 from mvpnet_torch.utils.writer import MetricWriter
+
+
+# the cuBLAS workspace settings under which torch lets cuBLAS run in the
+# deterministic mode (the first is the one the docs name)
+CUBLAS_WORKSPACE_CONFIGS = (":4096:8", ":16:8")
+
+
+def set_deterministic(enabled: bool = True, device=None) -> None:
+    """The deterministic mode (``train.deterministic``): every op takes a
+    deterministic algorithm or raises (``torch.use_deterministic_algorithms``,
+    never only a warning), cuDNN picks deterministic algorithms and does not
+    benchmark, and the UNet's resize takes its deterministic backward
+    (``models/unet.py``). On CUDA (``device``, else whenever CUDA is
+    available) cuBLAS needs ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in the
+    environment before its first call; without it this raises.
+    ``enabled=False`` restores the default mode. Process-wide."""
+    cuda = torch.cuda.is_available() if device is None else torch.device(device).type == "cuda"
+    if enabled and cuda and os.environ.get("CUBLAS_WORKSPACE_CONFIG") not in CUBLAS_WORKSPACE_CONFIGS:
+        raise RuntimeError(
+            "the deterministic mode on CUDA needs CUBLAS_WORKSPACE_CONFIG=:4096:8 in the environment "
+            f"(set before the process's first cuBLAS call), got {os.environ.get('CUBLAS_WORKSPACE_CONFIG')!r}"
+        )
+    torch.use_deterministic_algorithms(enabled, warn_only=False)
+    torch.backends.cudnn.deterministic = enabled
+    torch.backends.cudnn.benchmark = False
 
 
 def set_train_mode(model, cfg: Config) -> None:
@@ -60,12 +89,13 @@ def evaluate(model, eval_step, val_iter, num_batches: int) -> dict:
 
 
 def distribute(model, mesh, dev):
-    """Put a model on a process mesh: BN statistics and Dropout seeds from
-    the mesh (``dist.mesh.install``), the ring fusion when the mesh has a
-    space axis and the model fuses views (``install_space_fusion``), and
-    DDP over the mesh's own DDP group. Parameters that do not require
-    gradients (``freeze_2d``) stay out of DDP; BN's running statistics are
-    equal on every rank, so DDP broadcasts no buffers.
+    """Put a model on a process mesh: BN statistics over the mesh and
+    Dropout masks drawn for the global batch (``dist.mesh.install``), the
+    ring fusion when the mesh has a space axis and the model fuses views
+    (``install_space_fusion``), and DDP over the mesh's own DDP group.
+    Parameters that do not require gradients (``freeze_2d``) stay out of
+    DDP; BN's running statistics are equal on every rank, so DDP broadcasts
+    no buffers.
 
     Returns (the DDP model the train step runs, the batch specs of
     ``bootstrap.make_global_batch``: ``train_sp.batch_specs`` when
@@ -92,6 +122,8 @@ def train(cfg: Config, *, max_steps: int | None = None, resume: bool = True, dev
 
     bootstrap.initialize(device=device)  # no launcher: no group, one process
     dev = bootstrap.device() or resolve_device(device)
+    if cfg.train.deterministic:
+        set_deterministic(device=dev)
     mesh = mesh_mod.make_mesh(cfg.mesh)
     grouped = mesh.ddp_group is not None
     primary = bootstrap.is_primary()

@@ -172,7 +172,7 @@ def _capture_log() -> list:
     return records
 
 
-def _two_rank_worker(rank, world, workdir, cfg, params, batch, train_cfg, cli):
+def _two_rank_worker(rank, world, workdir, cfg, cfg_dropout, params, batch, train_cfg, cli):
     out = {"describe": bootstrap.describe(), "device": str(bootstrap.device())}
     # mesh layout: data=-1 takes every rank; (1, 2); a mesh that does not fit
     for data, space in ((-1, 1), (1, 2), (4, 1)):
@@ -183,6 +183,7 @@ def _two_rank_worker(rank, world, workdir, cfg, params, batch, train_cfg, cli):
             out[f"mesh_{data}_{space}"] = str(e)
     mesh = mesh_mod.make_mesh(MeshConfig(2, 1))
     out["dp"] = run_step(cfg, params, batch, mesh)
+    out["dp_dropout"] = run_step(cfg_dropout, params, batch, mesh)
 
     # train() on the data mesh, then resumed for one more step
     from mvpnet_torch.train.loop import train
@@ -207,7 +208,7 @@ def _two_rank_worker(rank, world, workdir, cfg, params, batch, train_cfg, cli):
 # ---------------------------------------------------------------------------
 
 
-def _dp_cfgs():
+def _dp_cfgs(dropout=0.0):
     from tests.test_models import tiny_config
     from tests.test_torch_models import _port_cfg
 
@@ -215,7 +216,7 @@ def _dp_cfgs():
     jcfg = dataclasses.replace(
         jcfg,
         data=dataclasses.replace(jcfg.data, augment=False),
-        model=dataclasses.replace(jcfg.model, pn2=dataclasses.replace(jcfg.model.pn2, dropout=0.0)),
+        model=dataclasses.replace(jcfg.model, pn2=dataclasses.replace(jcfg.model.pn2, dropout=dropout)),
         train=dataclasses.replace(jcfg.train, donate=False),
         solver=dataclasses.replace(jcfg.solver, optimizer="sgd", momentum=0.0),
     )
@@ -273,10 +274,12 @@ def two_ranks(tmp_path_factory):
             "train": ["--cfg", CFG_3D, "--device", "cpu", *cli_over, *RUN, "train.batch_size=4", "mesh.data=2"],
             "test": ["--cfg", CFG_3D, "--device", "cpu", "--sharded", *cli_over, "mesh.data=1", "mesh.space=2"],
         }
-        publish(workdir / "ranks", cfg=cfg, params=params, batch=batch, train_cfg=train_cfg, cli=cli)
+        cfg_dropout = _dp_cfgs(dropout=0.5)[1]
+        publish(workdir / "ranks", cfg=cfg, cfg_dropout=cfg_dropout, params=params, batch=batch,
+                train_cfg=train_cfg, cli=cli)
 
         # meanwhile: the port on one process and JAX's DP step on 2 devices
-        single = run_step(cfg, params, batch)
+        single = {0.0: run_step(cfg, params, batch), 0.5: run_step(cfg_dropout, params, batch)}
         jmesh = jax_make_mesh(JaxMeshConfig(data=2, space=1), devices=jax.devices()[:2])
         optimizer = nnx.Optimizer(jmodel, jax_build_optimizer(jcfg.solver), wrt=nnx.Param)
         jm = jax_make_train_step(jcfg, loss_fn, metric_fn)(jmodel, optimizer, jax_shard_batch(jmesh, batch),
@@ -369,6 +372,36 @@ def test_without_a_launcher_nothing_changes(monkeypatch):
     assert torch.equal(plain(x), meshed[0](x))
     assert torch.equal(plain.running_var, meshed[0].running_var)
     assert bootstrap.global_batch_to_local(8, mesh) == 8
+
+
+def test_dropout_keeps_each_ranks_rows_of_one_global_mask():
+    """Dropout(0.5) over ones(8, 64, 16) on fake ranks (a Mesh without
+    groups) gives the one-process output: data ranks keep their slice of
+    the global batch's mask; space ranks after the all_to_all keep their
+    share of their data rank's chunks (``train_sp.local_rows``), and after
+    the all-gather (a local batch that space does not divide) all of them.
+    Every rank draws the global shape, so a second call agrees too."""
+    from mvpnet_torch.models.blocks import Dropout
+
+    def ranks(data, space, B):
+        x = torch.ones(B, 64, 16)
+        want = Dropout(0.5).train()
+        want = [want(x), want(x)]
+        b_local = B // data
+        for rank in range(data * space):
+            mesh = mesh_mod.Mesh(data=data, space=space, rank=rank, world=data * space)
+            drop = mesh_mod.install(Dropout(0.5).train(), mesh)
+            rows = None if space == 1 else train_sp.local_rows(mesh, b_local)
+            first, total = rows or (mesh.data_rank * b_local, B)
+            n = b_local // space if b_local % space == 0 else b_local
+            assert total == B
+            for w in want:
+                assert torch.equal(drop(x[first : first + n], rows=rows), w[first : first + n]), (data, space, rank)
+
+    ranks(2, 1, 8)  # data-parallel: rank 1's rows drew rank 1's own mask before
+    ranks(2, 2, 8)  # space-sharded, all_to_all: 2 chunks a rank
+    ranks(2, 2, 6)  # space-sharded, all-gather: 3 chunks on each space rank
+    ranks(1, 4, 8)
 
 
 def test_unreachable_coordinator_raises(monkeypatch):
@@ -488,20 +521,25 @@ def test_two_ranks_bootstrap_and_mesh(two_ranks):
         assert "needs 4 ranks, have 2" in out["mesh_4_1"]
 
 
-def test_dp_step_matches_one_process_and_jax(two_ranks):
+@pytest.mark.parametrize("dropout", [0.0, 0.5])
+def test_dp_step_matches_one_process_and_jax(two_ranks, dropout):
     """The data-parallel step at 2 ranks, with unequal valid counts, against
     the port on one process and JAX's DP step: loss rtol 2e-4, params and
     BN statistics after one SGD step atol 3e-4, rtol 3e-3; both ranks end
-    with the same state."""
-    single_m, single_state = two_ranks["single"]
-    for m, st in (out["dp"] for out in two_ranks["ranks"]):
+    with the same state. At dropout 0.5 each rank keeps its rows of the
+    global batch's mask, so the step is the one-process step; JAX's masks
+    come from another generator, so JAX is held at dropout 0 only."""
+    key = "dp" if dropout == 0.0 else "dp_dropout"
+    single_m, single_state = two_ranks["single"][dropout]
+    for m, st in (out[key] for out in two_ranks["ranks"]):
         np.testing.assert_allclose(float(m["loss"]), float(single_m["loss"]), rtol=2e-4)
-        np.testing.assert_allclose(float(m["loss"]), two_ranks["jax"]["loss"], rtol=2e-4)
         np.testing.assert_allclose(float(m["accuracy"]), float(single_m["accuracy"]), atol=1e-6)
         assert torch.equal(m["confusion"], single_m["confusion"])
         assert_state_close(st, single_state)
-        assert_state_close(st, two_ranks["jax"]["state"])
-    a, b = (out["dp"][1] for out in two_ranks["ranks"])
+        if dropout == 0.0:
+            np.testing.assert_allclose(float(m["loss"]), two_ranks["jax"]["loss"], rtol=2e-4)
+            assert_state_close(st, two_ranks["jax"]["state"])
+    a, b = (out[key][1] for out in two_ranks["ranks"])
     assert all(torch.equal(a[k], b[k]) for k in a)
     # the local losses differ: the counts were unequal
     valid = two_ranks["batch"]["seg_label"] != -100

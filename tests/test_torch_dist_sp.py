@@ -43,11 +43,12 @@ def _shard(a, S, s):
     return torch.from_numpy(np.ascontiguousarray(a[s * n : (s + 1) * n]))
 
 
-def _four_rank_worker(rank, world, workdir, sp_cfg, sp_params, sp_batches, sp_aug, scene_cfg, scene_params):
+def _four_rank_worker(rank, world, workdir, sp_cfg, sp_cfg_dropout, sp_params, sp_batches, sp_aug, scene_cfg,
+                      scene_params):
     from mvpnet_torch.data.synthetic import make_scene
     from mvpnet_torch.eval.sharded_scene import predict_scene_sharded
 
-    out = {"ring": {}, "sp": {}, "scene": {}}
+    out = {"ring": {}, "sp": {}, "sp_dropout": {}, "scene": {}}
     for data, space in RING_MESHES:
         mesh = mesh_mod.make_mesh(MeshConfig(data, space))
         for name, args in (("random", ring_inputs(space)), ("ties", tie_inputs(space))):
@@ -57,6 +58,7 @@ def _four_rank_worker(rank, world, workdir, sp_cfg, sp_params, sp_batches, sp_au
     for name, ((data, space), _) in SP_CASES.items():
         mesh = mesh_mod.make_mesh(MeshConfig(data, space))
         out["sp"][name] = run_step(sp_cfg, sp_params, sp_batches[name], mesh, aug=sp_aug[name])
+        out["sp_dropout"][name] = run_step(sp_cfg_dropout, sp_params, sp_batches[name], mesh, aug=sp_aug[name])
 
     scene = make_scene(3, **SCENE)
     model = port_model(scene_cfg, scene_params).eval()
@@ -93,14 +95,14 @@ def _ops(b: dict) -> dict:
     }
 
 
-def _sp_jax_cfg():
+def _sp_jax_cfg(dropout=0.0):
     from tests.test_models import tiny_config
 
     cfg = tiny_config()
     return dataclasses.replace(
         cfg,
         data=dataclasses.replace(cfg.data, augment=True),
-        model=dataclasses.replace(cfg.model, pn2=dataclasses.replace(cfg.model.pn2, dropout=0.0)),
+        model=dataclasses.replace(cfg.model, pn2=dataclasses.replace(cfg.model.pn2, dropout=dropout)),
         train=dataclasses.replace(cfg.train, donate=False),
         solver=dataclasses.replace(cfg.solver, optimizer="sgd", momentum=0.0),
     )
@@ -185,11 +187,13 @@ def four_ranks(tmp_path_factory):
         aug = {name: _jax_chunk_draws(key, B, jcfg.data) for name, (_, B) in SP_CASES.items()}
         scfg_jax = _scene_jax_cfg()
         cfg, scfg = _port_cfg(jcfg), _port_cfg(scfg_jax)
-        publish(workdir, sp_cfg=cfg, sp_params=params, sp_batches=batches, sp_aug=aug, scene_cfg=scfg,
-                scene_params=params)
+        cfg_dropout = _port_cfg(_sp_jax_cfg(dropout=0.5))
+        publish(workdir, sp_cfg=cfg, sp_cfg_dropout=cfg_dropout, sp_params=params, sp_batches=batches, sp_aug=aug,
+                scene_cfg=scfg, scene_params=params)
 
         # meanwhile: the port on one process, JAX's mesh
-        single = {name: run_step(cfg, params, batches[name], aug=aug[name]) for name in SP_CASES}
+        single = {(name, dropout): run_step(c, params, batches[name], aug=aug[name])
+                  for name in SP_CASES for dropout, c in ((0.0, cfg), (0.5, cfg_dropout))}
         jax_sp = {}
         for name, ((data, space), _) in SP_CASES.items():
             if name.endswith("gather"):
@@ -244,19 +248,22 @@ def test_ring_fusion_on_gloo_ranks(four_ranks, devices, data, space):
     np.testing.assert_allclose(got[0], want[0], atol=1e-5)
 
 
+@pytest.mark.parametrize("dropout", [0.0, 0.5])
 @pytest.mark.parametrize("name", list(SP_CASES))
-def test_sp_step_grad_parity(four_ranks, name):
+def test_sp_step_grad_parity(four_ranks, name, dropout):
     """The space-sharded step (views split over space, the differentiable
     ring, the 3D net re-split by all_to_all, or by all-gather when the local
     batch does not divide), augmentation on, SGD: loss rtol 2e-4, accuracy
     atol 1e-6, equal confusion, every parameter and BN statistic atol 3e-4,
     rtol 3e-3, against one process and JAX's mesh; every rank ends with the
-    same state."""
-    single_m, single_state = four_ranks["single"][name]
-    want_jax = four_ranks["jax_sp"].get(name)
+    same state. At dropout 0.5 the head's mask is the global batch's, each
+    rank keeping the rows its 3D net runs; JAX's masks come from another
+    generator, so it is held at dropout 0 only."""
+    single_m, single_state = four_ranks["single"][(name, dropout)]
+    want_jax = four_ranks["jax_sp"].get(name) if dropout == 0.0 else None
     states = []
     for out in four_ranks["ranks"]:
-        m, st = out["sp"][name]
+        m, st = out["sp" if dropout == 0.0 else "sp_dropout"][name]
         for want in [single_m] + ([want_jax] if want_jax else []):
             np.testing.assert_allclose(float(m["loss"]), float(want["loss"]), rtol=2e-4)
             np.testing.assert_allclose(float(m["accuracy"]), float(want["accuracy"]), atol=1e-6)

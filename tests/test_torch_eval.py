@@ -36,7 +36,7 @@ from mvpnet_torch.eval import scene_fused, sharded_scene, whole_scene
 from mvpnet_torch.models import build_model
 from tests.test_models import tiny_config
 from tests.test_pipeline import small_data_cfg
-from tests.test_torch_models import _flat_params, _port_cfg
+from tests.test_torch_models import _flat_params, _port_cfg, jax_keys
 
 SCENE = dict(num_points=10000, num_frames=5, height=24, width=32, num_classes=5)
 
@@ -195,7 +195,7 @@ def test_evaluate_scenes_results_and_export(models, scenes, tmp_path):
 def test_scene_entry_loads_highres_config():
     evaluate, (model, cfg) = entry_mod.scene_entry(device="cpu")
     want = jax_load_config(entry_mod.HIGHRES_CONFIG)
-    assert port_config.to_dict(cfg) == to_dict(want)
+    assert jax_keys(port_config.to_dict(cfg)) == to_dict(want)
     assert cfg.data.num_points == 102400 and cfg.data.num_views_eval == 64
     assert [sa.npoint for sa in cfg.model.pn2.sa] == [8192, 2048, 512, 128]
     assert cfg.data.max_candidate_frames == 128 and cfg.eval.batch_size == 4

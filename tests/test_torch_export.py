@@ -38,7 +38,7 @@ from mvpnet_torch.train.checkpoint import Checkpointer
 from mvpnet_torch.train.step import prepare_batch
 from tests.test_eval import eval_cfg
 from tests.test_torch_cli import CFG_3D
-from tests.test_torch_models import _agree, _flat_params, _port_cfg
+from tests.test_torch_models import _agree, _flat_params, _port_cfg, jax_keys
 from tests.test_torch_train import TINY
 
 B = 2
@@ -218,6 +218,7 @@ def test_meta_matches_the_jax_artifact(artifact, jax_artifact):
 
     got, want = meta(artifact), meta(jax_artifact)
     assert set(want) <= set(got)
+    got["config"] = jax_keys(got["config"])  # the port's own config key aside
     for key in ("batch_keys", "input_spec", "output", "class_names", "config"):
         assert got[key] == want[key], key
     assert got["platforms"] == ["cpu"] and got["requires"] == ["mvpnet_torch.ops"] and "device" not in got
@@ -259,6 +260,21 @@ def test_agreement_gates_on_confident_decisions():
     r = export_3d.agreement(flipped_tie, want)
     assert r["agreement"] == 0.5 and r["confident_agreement"] == 1.0 and r["confident_share"] == 0.5
     assert export_3d.agreement(want[..., ::-1].copy(), want)["confident_agreement"] == 0.0
+
+
+def test_bf16_tie_band_scales_with_the_top_logit():
+    """The band is BF16_TIE_STEPS bf16 grid steps at the top logit (16 at
+    |3216|, 2^-7 of 2^11), never below TAU; agreement takes it a decision."""
+    want = np.array([[[3216.0, 3190.0], [3216.0, 3100.0], [10.0, 9.0], [-3.0, -50.0]]], np.float32)
+    band = export_3d.bf16_tie_band(want)
+    np.testing.assert_array_equal(band, [[4 * 16.0, 4 * 16.0, export_3d.TAU, export_3d.TAU]])
+    got = want[..., ::-1].copy()  # every decision flipped
+    r = export_3d.agreement(got, want, tau=band)
+    assert r["agreement"] == 0.0 and r["confident_agreement"] == 0.0 and r["confident_share"] == 0.75
+    got[0, 1], got[0, 2], got[0, 3] = want[0, 1], want[0, 2], want[0, 3]  # only the tie inside the band flips
+    r = export_3d.agreement(got, want, tau=band)
+    assert r["agreement"] == 0.75 and r["confident_agreement"] == 1.0
+    assert export_3d.agreement(got, want)["confident_agreement"] == 0.75  # TAU alone counts the tie
 
 
 def _get(url):
