@@ -159,7 +159,44 @@ Phases, each of which fails the run with a nonzero exit:
            1e3-1e5, where bf16 rounding exceeds the rule's absolute band),
            then in f32 on the same weights held to the rule as it is.
      It prints the {"dist": ...} line.
-  9. e2e: mvpnet_torch.e2e_run's main in process (E2E_ARGS: a few steps of
+  9. shapes: configs #3 and #4 at their shapes through
+     mvpnet_torch.config_shapes (the launch counts set to 0 before each step
+     and asserted after it):
+       (a) config #3 (configs/scannet/mvpnet_3d_32k_chunks.yaml on synthetic
+           data: B=32 as 4 x B8, N=32,768, V=3; example_batch seed 0, seeded
+           weights) with train.remat off and on: SHAPES_STEPS steps each,
+           launching 4 / 4 / 12 / 16 / 16 a step (knn_fusion in its demand
+           mode / fps_perrow / fps / ball query / three-NN); step ms,
+           chunks/s, peak memory;
+       (b) the first microbatch of (a)'s batch, forward and backward from
+           the same weights in the deterministic mode, through the kernels
+           and with set_impl("reference"), with remat off and on: equal index-op
+           outputs, loss and logits within PARITY_LOGITS_ABS (cosine >
+           PARITY_LOGITS_COS), every gradient to cosine > PARITY_GRAD_COS
+           with its norm within PARITY_GRAD_NORM;
+       (c) train_entry() at config #3 on synthetic scenes (its chunks drawn
+           with replacement: exact duplicate points), its first microbatch
+           held as in (b); on that microbatch row 1 in its demand mode on
+           the batch's pixel cloud (the first FUSION_SUBSET queries of each
+           row against the plain version, also with a row of no valid view
+           and one of two real refs), row 5 at SA1 (8 x 32,768 -> 4,096,
+           with the clusters the card holds at once) and rows 2-4 at every
+           level, each timed beside its bound and yardstick;
+       (d) config #4's training microbatch (B=2, N=102,400, V=8) with
+           remat off and on, launching 1 / 1 / 3 / 4 / 4 a step.
+     It prints the {"shapes": ...} line.
+ 10. runbook: python -m mvpnet_torch.runbook --smoke on a fake raw ScanNet
+     tree (write_raw_scan, RAW_SCANS scans) in outputs/chip_smoke_runbook
+     (removed after): every stage exits 0; each test_3d mode's forwards
+     launch 1/4/0/4/4 (its log's launch line); the report has every key; a
+     second invocation runs no stage; runs/scannet_smoke_*.json unchanged.
+     Then each test_3d stage's command again in process on the runbook's
+     checkpoint and preprocessed scans, through the kernels and with
+     set_impl("reference"): the index ops (and the fused mode's
+     knn_prepared) at the smoke shapes give equal outputs in the same
+     order, and the two runs' mIoUs are printed. It prints the
+     {"runbook": ...} line.
+ 11. e2e: mvpnet_torch.e2e_run's main in process (E2E_ARGS: a few steps of
      2D pretraining and of the warm-started fusion training at full width on
      two synthetic scenes, whole-scene evaluation of one held-out scene, the
      sharded estimator on the loopback mesh at space 2 beside the fused
@@ -174,7 +211,9 @@ times and bounds on the scene path, the chunk path's under "chunk_path",
 the train path's under "train_path", knn_prepared's under "fused_path";
 rows 6 and 7 at the train shape, row 6's subgroup gate under "scene_path",
 each row's launches on the dist phase's paths under "dist_launches", on
-the e2e phase's stages under "e2e_launches"),
+the e2e phase's stages under "e2e_launches", on the shapes and runbook
+phases' paths under "shapes_launches"; rows 1-5 on config #3's train path
+under "train32k_path"),
 the card line, and last
 {"ok": true, "device": {...}}.
 Without CUDA, or without the mvpnet_torch package beside it, it exits
@@ -286,11 +325,79 @@ FUSION_SUBSET = 256  # queries of each row for the fusion kNN's plain version
 # fused estimator's (9.4e10, where its demand mode is), around
 # knn_bucketed.DEMAND_PAIRS; (16384, 8) is (c)'s reduced depth
 CROSSOVER = [(8192, 8), (16384, 8), (32768, 5), (32768, 16), (102400, 8)]
+# the runbook phase: scans of the fake raw tree, each with its points and raw
+# frames (data/preprocess.py keeps every 10th: 3 frames a scan)
+RAW_SCANS = 3
+RAW_POINTS = 6000
+RAW_FRAMES = 30
+RUNBOOK_TIMEOUT = 600
+# the shapes phase: timed steps a variant after one untimed, and train_entry's;
+# the parity gate of tests/test_parity.py: logits (and the loss) to an
+# absolute PARITY_LOGITS_ABS with cosine > PARITY_LOGITS_COS, each gradient
+# to cosine > PARITY_GRAD_COS with its norm within PARITY_GRAD_NORM
+SHAPES_STEPS = 3
+SHAPES_ENTRY_STEPS = 2
+PARITY_LOGITS_ABS = 5e-3
+PARITY_LOGITS_COS = 0.99999
+PARITY_GRAD_COS = 0.999
+PARITY_GRAD_NORM = 0.01
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def write_raw_scan(raw: str, scene_id: str, seed: int, points: int = RAW_POINTS, frames: int = RAW_FRAMES,
+                   height: int = 60, width: int = 80) -> None:
+    """One scan of a fake raw ScanNet tree in the layout data/preprocess.py
+    reads (<raw>/scans/<id>/: the labelled binary PLY, color/<i>.jpg,
+    depth/<i>.png in mm, label/<i>.png of NYU40 ids, pose/<i>.txt,
+    intrinsic/intrinsic_depth.txt): a 3 m room's walls and floor, and frames
+    from its middle looking out at the walls at 1.2-2.8 m. Needs PIL."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    scan = os.path.join(raw, "scans", scene_id)
+    for d in ("color", "depth", "pose", "intrinsic", "label"):
+        os.makedirs(os.path.join(scan, d), exist_ok=True)
+    xyz = rng.uniform(0.0, 3.0, (points, 3)).astype(np.float32)
+    side = rng.integers(0, 5, points)  # 4 walls and the floor
+    for s, (axis, value) in enumerate([(0, 0.0), (0, 3.0), (1, 0.0), (1, 3.0), (2, 0.0)]):
+        xyz[side == s, axis] = value
+    xyz[:, 2] = np.where(side == 4, 0.0, xyz[:, 2] * (2.5 / 3.0))
+    rgb = rng.integers(0, 256, (points, 3)).astype(np.uint8)
+    nyu = np.where(side == 4, 2, rng.choice([1, 3, 5, 39], points)).astype(np.uint16)  # floor 2, walls 1 ...
+    vertex = np.empty(points, np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("red", "u1"), ("green", "u1"),
+                                        ("blue", "u1"), ("label", "<u2")]))
+    for i, name in enumerate("xyz"):
+        vertex[name] = xyz[:, i]
+    for i, name in enumerate(("red", "green", "blue")):
+        vertex[name] = rgb[:, i]
+    vertex["label"] = nyu
+    header = (f"ply\nformat binary_little_endian 1.0\nelement vertex {points}\n"
+              "property float x\nproperty float y\nproperty float z\nproperty uchar red\nproperty uchar green\n"
+              "property uchar blue\nproperty ushort label\nend_header\n")
+    with open(os.path.join(scan, f"{scene_id}_vh_clean_2.labels.ply"), "wb") as f:
+        f.write(header.encode("ascii") + vertex.tobytes())
+    for fid in range(frames):
+        theta = 2 * np.pi * fid / frames
+        forward = np.array([np.cos(theta), np.sin(theta), 0.0])
+        right = np.array([np.sin(theta), -np.cos(theta), 0.0])
+        pose = np.eye(4)
+        pose[:3, :3] = np.stack([right, [0.0, 0.0, -1.0], forward], axis=1)  # camera x right, y down, z forward
+        pose[:3, 3] = [1.5, 1.5, 1.2]
+        np.savetxt(os.path.join(scan, "pose", f"{fid}.txt"), pose)
+        depth_mm = rng.uniform(1200, 2800, (height, width)).astype(np.uint16)
+        Image.fromarray(rng.integers(0, 256, (height, width, 3)).astype(np.uint8)).save(
+            os.path.join(scan, "color", f"{fid}.jpg"))
+        Image.fromarray(depth_mm).save(os.path.join(scan, "depth", f"{fid}.png"))
+        Image.fromarray(rng.choice([0, 1, 2, 3, 5], (height, width)).astype(np.uint8)).save(
+            os.path.join(scan, "label", f"{fid}.png"))
+    intr = np.eye(4)
+    intr[0, 0] = intr[1, 1] = 0.6 * width
+    intr[0, 2], intr[1, 2] = width / 2, height / 2
+    np.savetxt(os.path.join(scan, "intrinsic", "intrinsic_depth.txt"), intr)
 
 
 def card_line() -> str:
@@ -715,10 +822,12 @@ def measure(torch, case: dict) -> dict:
     return row
 
 
+INDEX_OPS = ("knn", "farthest_point_sample", "ball_query", "three_nn_interpolate")
+
+
 @contextlib.contextmanager
-def recording(ops):
+def recording(ops, names=INDEX_OPS):
     """Record the outputs of the public index ops while a request runs."""
-    names = ("knn", "farthest_point_sample", "ball_query", "three_nn_interpolate")
     saved = {n: getattr(ops, n) for n in names}
     log: list = []
 
@@ -2260,7 +2369,7 @@ def dist_phase(torch) -> dict:
 
 
 def e2e_phase(torch) -> dict:
-    """9: mvpnet_torch.e2e_run's main in process (2D pretraining, the warm
+    """11: mvpnet_torch.e2e_run's main in process (2D pretraining, the warm
     started fusion training, whole-scene evaluation, the sharded estimator
     against the fused one), E2E_ARGS: every results.json key, every mIoU in
     [0, 1], no launch in the 2D stage, the chunk path's launches a forward
@@ -2315,6 +2424,331 @@ def e2e_launches(summary: dict, name: str) -> dict:
     stages = summary["results"]["launches"]
     return {**{stage: counts[name] for stage, counts in stages.items()},
             "train_3d_step": stages["train_3d"][name] / summary["forwards_3d"]}
+
+
+def close(torch, what: str, got, want, tol: float, cos_min: float) -> dict:
+    """Hold ``got`` to ``want``: max |got - want| < tol and cosine >
+    cos_min; returns both."""
+    a, b = got.detach().double().flatten(), want.detach().double().flatten()
+    err = (a - b).abs().max().item()
+    cos = (a @ b / (a.norm() * b.norm())).item() if a.norm() > 0 and b.norm() > 0 else float(torch.equal(a, b))
+    if not err < tol or not cos > cos_min:
+        fail(f"{what}: max |delta| {err} (limit {tol}), cosine {cos} (limit {cos_min})")
+    return {"max_abs_err": err, "cosine": cos}
+
+
+def microbatch_run(torch, ops, cfg, model, init_state, mb, loss_fn, impl: str) -> dict:
+    """One microbatch's forward and backward from ``init_state`` through
+    ``impl``'s ops: the loss, the 3D logits, every gradient, the index ops'
+    outputs and the launches (counts set to 0 just before)."""
+    from mvpnet_torch.models.blocks import Dropout
+    from mvpnet_torch.train.step import prepare_batch
+
+    model.load_state_dict(init_state)
+    model.zero_grad(set_to_none=True)
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = None
+    ops.set_impl(impl)
+    try:
+        ops.reset_launch_counts()
+        with recording(ops) as log:
+            batch = prepare_batch(cfg, mb, training=True, generator=torch.Generator().manual_seed(0))
+            out = model(batch)
+            loss = loss_fn(out, batch)
+            loss.backward()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        ops.set_impl("auto")
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+    return {"loss": loss.detach(), "logits": out[0].detach(), "grads": grads, "log": log, "launches": counts}
+
+
+def microbatch_parity(torch, ops, cfg, batch, label: str) -> dict:
+    """The first microbatch of ``batch`` at ``cfg`` (train.remat as set),
+    forward and backward from seeded weights in the deterministic mode (the
+    default mode's atomics sum the bf16 backward in another order each run,
+    which moves a BatchNorm scale's gradient by ~1%), through the kernels
+    (``config_shapes.expected_launches``) and through the plain versions
+    (none): equal index-op outputs; loss and logits within PARITY_LOGITS_ABS
+    and PARITY_LOGITS_COS, every gradient within PARITY_GRAD_COS and
+    PARITY_GRAD_NORM (tests/test_parity.py's gate)."""
+    from mvpnet_torch.config_shapes import expected_launches
+    from mvpnet_torch.models.build import build_model, loss_and_metrics
+    from mvpnet_torch.ops import fps
+    from mvpnet_torch.train.loop import set_deterministic, set_train_mode
+
+    rows = cfg.train.batch_size // max(1, cfg.train.grad_accum)
+    mb = {k: v[:rows] for k, v in batch.items()}
+    model, _, _ = build_model(cfg, seed=0)
+    model = model.to("cuda")
+    set_train_mode(model, cfg)
+    init_state = {k: v.clone() for k, v in model.state_dict().items()}
+    loss_fn = loss_and_metrics(cfg)[0]
+    set_deterministic(device="cuda")  # the backward's sums in one order, run to run
+    try:
+        got = microbatch_run(torch, ops, cfg, model, init_state, mb, loss_fn, "auto")
+        want = microbatch_run(torch, ops, cfg, model, init_state, mb, loss_fn, "reference")
+    finally:
+        set_deterministic(False)
+    launches = expected_launches(cfg, fps.shared_bytes(torch.device("cuda")))
+    if got["launches"] != launches or any(want["launches"].values()):
+        fail(f"{label} microbatch: launches {got['launches']} through the kernels (want {launches}), "
+             f"{want['launches']} through the plain versions")
+    n_equal = compare_logs(torch, got["log"], want["log"], f"{label} microbatch")
+    loss = close(torch, f"{label} loss", got["loss"], want["loss"], PARITY_LOGITS_ABS, -1.0)
+    logits = close(torch, f"{label} logits", got["logits"], want["logits"], PARITY_LOGITS_ABS, PARITY_LOGITS_COS)
+    if set(got["grads"]) != set(want["grads"]):
+        fail(f"{label}: gradients of other parameters through the kernels and the plain versions")
+    worst_cos, worst_ratio = 1.0, 1.0
+    for name, g in got["grads"].items():
+        w = want["grads"][name]
+        gn, wn = g.double().norm().item(), w.double().norm().item()
+        if gn == wn == 0.0:
+            continue
+        ratio = gn / wn if wn > 0 else float("inf")
+        cos = (g.double().flatten() @ w.double().flatten()).item() / (gn * wn) if gn * wn > 0 else 0.0
+        if not cos > PARITY_GRAD_COS or not abs(ratio - 1.0) < PARITY_GRAD_NORM:
+            fail(f"{label} gradient {name}: cosine {cos}, norm ratio {ratio}")
+        worst_cos, worst_ratio = min(worst_cos, cos), max(worst_ratio, abs(ratio - 1.0) + 1.0)
+    print(f"  {label} first microbatch ({rows} chunks) through the plain versions: {n_equal} index-op outputs "
+          f"equal, loss {got['loss'].item():.6f} / {want['loss'].item():.6f}, logits max |delta| "
+          f"{logits['max_abs_err']:.3g} cosine {logits['cosine']:.8f}, {len(got['grads'])} gradients: worst "
+          f"cosine {worst_cos:.6f}, worst norm ratio {worst_ratio:.6f}; launches {got['launches']}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"rows": rows, "index_op_outputs_equal": n_equal, "loss": loss, "logits": logits,
+            "gradients": len(got["grads"]), "worst_grad_cosine": worst_cos, "worst_grad_norm_ratio": worst_ratio,
+            "launches": got["launches"]}
+
+
+def train32k_rows(torch, cfg, batch) -> dict:
+    """Rows 1-5 on the first microbatch of a train_entry batch at config #3
+    (its chunks drawn with replacement where a chunk holds fewer points:
+    exact duplicates), augmented as the step does: row 1 in its route's
+    (demand) mode on the batch's own pixel cloud, held on FUSION_SUBSET
+    queries a row, and with a row whose views are all invalid and a row of
+    two real refs (fewer than k: ties to the lower index); row 5 at SA1;
+    rows 2-4 at every level. Returns {kernel: row}."""
+    from mvpnet_torch.ops import KERNELS, reference
+    from mvpnet_torch.train.step import prepare_batch
+
+    fusion, fps = KERNELS["knn_fusion"], KERNELS["fps"]
+    rows = cfg.train.batch_size // max(1, cfg.train.grad_accum)
+    with torch.no_grad():
+        mb = prepare_batch(cfg, {k: v[:rows] for k, v in batch.items()}, training=True,
+                           generator=torch.Generator().manual_seed(0))
+        pts = mb["points"].float().contiguous()
+        pix = mb["image_xyz"].reshape(pts.shape[0], -1, 3).contiguous()
+        del mb
+        k = cfg.model.aggregation.k
+        B, M, N = pts.shape[0], pts.shape[1], pix.shape[1]
+        dup = 1.0 - sum(torch.unique(row, dim=0).shape[0] for row in pts) / (B * M)
+        print(f"  config #3 fusion inputs: {B}x{M} points ({dup:.4f} of them repeat a point of their row), "
+              f"{N} pixels a row, {(pix.abs() >= 1e5).any(-1).float().mean().item():.4f} of them "
+              f"sentinels; route {fusion.route(B, M, N)}", flush=True)
+        few = pix.clone()
+        few[0] = 1e6  # every view of the row invalid
+        few[1] = 1e6
+        few[1, [7, N - 5]] = pix[1, [7, N - 5]]  # two real refs
+        q_sub = pts[:, :FUSION_SUBSET].contiguous()
+        same(torch, "knn_fusion config #3 rows with fewer than k real refs",
+             tuple(x[:, :FUSION_SUBSET] for x in fusion.knn(pts, few, k)), reference.knn(q_sub, few, k))
+        print("  knn_fusion config #3 rows with fewer than k real refs: equal", flush=True)
+        del few
+        case = fusion_case(torch, pts, pix, k, f"{B}x{M} queries over {N} refs, k={k}", subset=FUSION_SUBSET)
+        out = {"knn_fusion": measure(torch, dict(case, reps=10))}
+        sa1 = cfg.model.pn2.sa[0]
+        out["fps_perrow"] = measure(torch, dict(
+            name="fps_perrow", shape=f"{B}x{M} points -> {sa1.npoint} (SA1)", reps=5,
+            kern=lambda: fps.farthest_point_sample(pts, sa1.npoint),
+            plain=lambda: reference.farthest_point_sample(pts, sa1.npoint), library=None,
+            ops=10.0 * B * (sa1.npoint - 1) * M, nbytes=4.0 * (3 * B * M + B * sa1.npoint),
+            extra={"cluster": fps.CLUSTER, "max_active_clusters": fps.cluster_occupancy(M, pts.device)},
+        ))
+        out.update(path_rows(torch, cfg, pts))  # rows 2-4: SA2-SA4 FPS, SA1-SA4, FP1-FP4
+    return out
+
+
+def shapes_phase(torch) -> tuple[dict, dict]:
+    """10: configs #3 and #4 at their shapes through mvpnet_torch.config_shapes
+    (the counts asserted a step there): config #3's step (B=32 as 4 x B8,
+    N=32,768, V=3) with remat off and on, the first microbatch of each held
+    against the plain versions; train_entry at config #3, its first
+    microbatch held too, and rows 1-5 on it; config #4's training microbatch
+    (B=2, N=102,400, V=8) with remat off and on. Returns (summary, rows)."""
+    import dataclasses
+
+    from mvpnet_torch import config_shapes, ops
+    from mvpnet_torch.config import load_config
+    from mvpnet_torch.entry import example_batch, to_device
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg3 = load_config(config_shapes.CONFIG3, SYNTHETIC)
+    summary = {"config3": config_shapes.train_shape(cfg3, dev, SHAPES_STEPS, "config #3")}
+    d = cfg3.data
+    batch = to_device(example_batch(np.random.default_rng(0), B=cfg3.train.batch_size, N=d.num_points,
+                                    V=d.num_views_train, H=d.image_height, W=d.image_width,
+                                    num_classes=d.num_classes), dev)
+    summary["config3_parity"] = {}
+    for variant, remat in (("base", False), ("remat", True)):
+        cfg = dataclasses.replace(cfg3, train=dataclasses.replace(cfg3.train, remat=remat))
+        summary["config3_parity"][variant] = microbatch_parity(torch, ops, cfg, batch, f"config #3 {variant}")
+    del batch
+    summary["config3_entry"], first = config_shapes.entry_steps(cfg3, dev, SHAPES_ENTRY_STEPS)
+    summary["config3_entry_parity"] = microbatch_parity(torch, ops, cfg3, first, "config #3 train_entry")
+    rows = train32k_rows(torch, cfg3, first)
+    for name, row in rows.items():  # a config #3 step's launches of each kernel
+        row["launches"] = summary["config3"]["base"]["launches_per_step"][name]
+    del first
+    torch.cuda.empty_cache()
+    cfg4 = load_config(config_shapes.CONFIG4, SYNTHETIC)
+    summary["config4_train"] = config_shapes.train_shape(cfg4, dev, SHAPES_STEPS, "config #4 train")
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"  shapes phase: {summary['seconds']:.1f} s", flush=True)
+    return summary, rows
+
+
+def shapes_launches(shapes: dict, runbook: dict, name: str) -> dict:
+    """A kernel's launches on each path of the shapes and runbook phases."""
+    return {
+        "config3_step": shapes["config3"]["base"]["launches_per_step"][name],
+        "config3_remat_step": shapes["config3"]["remat"]["launches_per_step"][name],
+        "config3_train_entry_step": shapes["config3_entry"]["launches_per_step"][name],
+        "config3_microbatch_check": shapes["config3_parity"]["base"]["launches"][name],
+        "config4_train_step": shapes["config4_train"]["base"]["launches_per_step"][name],
+        "config4_train_remat_step": shapes["config4_train"]["remat"]["launches_per_step"][name],
+        **{f"runbook_{mode}": run["launches"][name] for mode, run in runbook["test_3d"].items()},
+    }
+
+
+def runbook_launches(log_path: str) -> dict:
+    """The "kernel launches since start" dict a cli.test_3d log ends with."""
+    import ast
+
+    with open(log_path) as f:
+        lines = [ln for ln in f if "kernel launches since start:" in ln]
+    if not lines:
+        fail(f"{log_path}: no kernel launch line")
+    return ast.literal_eval(lines[-1].split("kernel launches since start:", 1)[1].strip())
+
+
+def run_runbook(cmd: list, what: str) -> dict:
+    """Run the runbook; its {"stages": ...} line."""
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                          timeout=RUNBOOK_TIMEOUT)
+    if proc.returncode != 0:
+        fail(f"runbook ({what}) exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    stages = [json.loads(ln)["stages"] for ln in proc.stdout.splitlines() if ln.startswith('{"stages"')]
+    if len(stages) != 1:
+        fail(f"runbook ({what}): no stages line in {proc.stdout[-2000:]}")
+    return stages[0]
+
+
+def runbook_eval_parity(torch, ops, stage, what: str) -> dict:
+    """A runbook test_3d stage's command in process, through the kernels and
+    with set_impl("reference"): the index ops (with ``knn_prepared``, the
+    fused mode's search) called in the same order with equal outputs; the
+    reference run launches nothing. Returns the count, each op's first
+    output shapes and both runs' mIoUs."""
+    from mvpnet_torch.cli import test_3d
+
+    argv = stage.cmd[stage.cmd.index("mvpnet_torch.cli.test_3d") + 1:]
+    logs, mious, counts = {}, {}, {}
+    for impl in ("auto", "reference"):
+        ops.set_impl(impl)
+        try:
+            ops.reset_launch_counts()
+            with recording(ops, INDEX_OPS + ("knn_prepared",)) as log:
+                mious[impl] = cli_json(test_3d.main, argv)["miou"]
+            torch.cuda.synchronize()
+            counts[impl] = ops.launch_counts()
+        finally:
+            ops.set_impl("auto")
+        logs[impl] = log
+    if any(counts["reference"].values()):
+        fail(f"{what} reference run launched kernels: {counts['reference']}")
+    if not all(counts["auto"][k] for k in ("knn_fusion", "fps", "ball_query", "knn")):
+        fail(f"{what}: kernel launches {counts['auto']}, want rows 1-4")
+    n_equal = compare_logs(torch, logs["auto"], logs["reference"], what)
+    shapes = {n: [list(o.shape) for o in outs] for n, outs in reversed(logs["auto"])}  # each op's first call
+    print(f"  {what} in process through the plain versions: {n_equal} index-op outputs equal; mIoU {mious['auto']} "
+          f"(kernels) / {mious['reference']} (plain); first output shapes {shapes}", flush=True)
+    return {"index_op_outputs_equal": n_equal, "first_output_shapes": shapes, "miou": mious,
+            "launches": counts["auto"]}
+
+
+def runbook_phase(torch) -> dict:
+    """11: mvpnet_torch.runbook --smoke on the card over a fake raw ScanNet
+    tree of RAW_SCANS scans (write_raw_scan), in outputs/chip_smoke_runbook
+    (removed after): every stage runs and exits 0; each test_3d mode's
+    forwards launch rows 1-4, 1/4/0/4/4 a forward (its log's launch line);
+    the report has every key; a second invocation runs no stage; the JAX
+    package's runs/scannet_smoke_*.json do not change. Then each test_3d
+    stage's command in process against the plain versions
+    (runbook_eval_parity), so the kernels are held at the smoke shapes."""
+    import glob
+    import hashlib
+    import shutil
+
+    from mvpnet_torch import ops, runbook
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    jax_files = sorted(glob.glob(os.path.join(root, "runs", "scannet_smoke_*.json")))
+
+    def digests():
+        return {f: hashlib.sha256(open(f, "rb").read()).hexdigest() for f in jax_files}
+
+    before = digests()
+    t0 = time.perf_counter()
+    directory = os.path.join(root, "outputs", "chip_smoke_runbook")
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        raw = os.path.join(directory, "raw")
+        for i in range(RAW_SCANS):
+            write_raw_scan(raw, f"scene{i:04d}_00", seed=i)
+        cmd = [sys.executable, "-m", "mvpnet_torch.runbook", "--raw", raw, "--smoke", "--root", directory]
+        first = run_runbook(cmd, "first run")
+        first_s = time.perf_counter() - t0
+        if set(first.values()) != {"ran"}:
+            fail(f"runbook first run: stages {first}")
+        smoke = os.path.join(directory, "outputs", "torch_runbook_smoke")
+        with open(os.path.join(smoke, "scannet_smoke_parity.json")) as f:
+            report = json.load(f)
+        if tuple(report) != runbook.REPORT_KEYS or report["smoke"] is not True:
+            fail(f"runbook report keys {list(report)}, want {runbook.REPORT_KEYS}")
+        modes = [m for m, _ in runbook.EVAL_MODES]
+        if sorted(report["measured"]) != sorted(modes) or not all(0 <= v <= 1 for v in report["measured"].values()):
+            fail(f"runbook report measured {report['measured']}")
+        test_3d = {}
+        for mode in modes:
+            counts = runbook_launches(os.path.join(smoke, "logs", f"test_3d_{mode}.log"))
+            forwards = counts["knn_fusion"]
+            want = dict.fromkeys(counts, 0)
+            want.update(knn_fusion=forwards, fps=4 * forwards, ball_query=4 * forwards, knn=4 * forwards)
+            if forwards < 1 or counts != want:
+                fail(f"runbook test_3d {mode}: launches {counts}, want 1/4/0/4/4 a forward")
+            test_3d[mode] = {"forwards": forwards, "launches": {k: n / forwards for k, n in counts.items()}}
+        second = run_runbook(cmd, "second run")
+        if set(second.values()) != {"done"}:
+            fail(f"runbook second run: stages {second}")
+        args = runbook.parse_args(cmd[cmd.index("--raw"):])
+        for stage in runbook.plan(args, runbook.paths(args)):
+            if stage.result is not None:
+                mode = stage.name.removeprefix("test_3d_")
+                test_3d[mode]["parity"] = runbook_eval_parity(torch, ops, stage, f"runbook test_3d {mode}")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    if digests() != before:
+        fail("the runbook changed the JAX package's runs/scannet_smoke_*.json")
+    seconds = time.perf_counter() - t0
+    print(f"  runbook --smoke: stages {first}, {first_s:.1f} s; report {report['measured']}; test_3d forwards "
+          f"{ {m: r['forwards'] for m, r in test_3d.items()} } each 1/4/0/4/4; second run: {second}; phase "
+          f"{seconds:.1f} s", flush=True)
+    return {"stages": first, "second_run": second, "report": report, "test_3d": test_3d, "first_run_s": first_s,
+            "seconds": seconds}
 
 
 def dist_launches(summary: dict, name: str) -> dict:
@@ -2373,6 +2807,12 @@ def main() -> None:
     print("dist phase:", flush=True)
     dist = dist_phase(torch)
     torch.cuda.empty_cache()
+    print("shapes phase:", flush=True)
+    shapes, shapes_rows = shapes_phase(torch)
+    torch.cuda.empty_cache()
+    print("runbook phase:", flush=True)
+    runbook = runbook_phase(torch)
+    torch.cuda.empty_cache()
     print("e2e phase:", flush=True)
     e2e = e2e_phase(torch)
 
@@ -2395,6 +2835,9 @@ def main() -> None:
         row["recipe_launches"] = recipe_launches(recipe, row["name"])
         row["dist_launches"] = dist_launches(dist, row["name"])
         row["e2e_launches"] = e2e_launches(e2e, row["name"])
+        row["shapes_launches"] = shapes_launches(shapes, runbook, row["name"])
+        if row["name"] in shapes_rows:  # config #3's train path
+            row["train32k_path"] = path(shapes_rows[row["name"]])
     print(json.dumps({"slice": summary}), flush=True)
     print(json.dumps({"scene": scene_summary}), flush=True)
     print(json.dumps({"train": train_summary}), flush=True)
@@ -2402,6 +2845,8 @@ def main() -> None:
     print(json.dumps({"recipe": recipe}), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"dist": dist}), flush=True)
+    print(json.dumps({"shapes": shapes}), flush=True)
+    print(json.dumps({"runbook": runbook}), flush=True)
     print(json.dumps({"e2e": e2e}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)

@@ -23,6 +23,7 @@ from __future__ import annotations
 import argparse
 import json
 
+from mvpnet_torch import ops
 from mvpnet_torch.config import load_config
 from mvpnet_torch.data.pipeline import build_dataset
 from mvpnet_torch.dist import bootstrap
@@ -85,6 +86,7 @@ def main(argv=None):
         fused=args.fused or cfg.eval.fused,
     )
     if primary:
+        logger.info("kernel launches since start: %s", ops.launch_counts())
         logger.info("results: %s", json.dumps(results, indent=2))
         print(json.dumps(results), flush=True)
     return results

@@ -424,6 +424,34 @@ extern "C" int fps(const float* pts, const uint8_t* mask, int B, int N, int npoi
   return cudaGetLastError();
 }
 
+// fps_perrow's launch: B clusters of kCluster CTAs, kClusterThreads threads
+// each, smem_points float4 of dynamic shared memory a CTA. Sets the kernel's
+// attributes and fills cfg, which points at attr. Returns cudaError_t.
+static cudaError_t perrow_launch_config(int B, int smem_points, cudaStream_t st,
+                                        cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
+  int avail = 0;
+  cudaError_t e = static_cast<cudaError_t>(fps_shared_bytes(&avail));
+  if (e != cudaSuccess) return e;
+  const size_t bytes = sizeof(float4) * (size_t)smem_points;
+  if (bytes > (size_t)avail) return cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(fps_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(fps_cluster_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)B * kCluster);
+  cfg->blockDim = dim3(kClusterThreads);
+  cfg->dynamicSmemBytes = bytes;
+  cfg->stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
 // pts (B, N, 3) f32 contiguous; mask (B, N) uint8 or null; out (B, npoint)
 // int32. One cluster of kCluster CTAs a row; CTA r owns points
 // [r * slice_len, (r + 1) * slice_len) (kCluster * slice_len >= N) and keeps
@@ -434,7 +462,6 @@ extern "C" int fps(const float* pts, const uint8_t* mask, int B, int N, int npoi
 extern "C" int fps_perrow(const float* pts, const uint8_t* mask, int B, int N,
                           int npoint, int slice_len, int smem_points,
                           float* scratch, int* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || npoint <= 0) return cudaSuccess;
   if (N <= 0 || slice_len <= 0 || smem_points < 0 ||
       (long long)kCluster * slice_len < N)
@@ -442,29 +469,27 @@ extern "C" int fps_perrow(const float* pts, const uint8_t* mask, int B, int N,
   if (scratch == nullptr &&
       (long long)slice_len > (long long)kRegPoints * kClusterThreads + smem_points)
     return cudaErrorInvalidValue;
-  int avail = 0;
-  cudaError_t e = static_cast<cudaError_t>(fps_shared_bytes(&avail));
-  if (e != cudaSuccess) return e;
-  const size_t bytes = sizeof(float4) * (size_t)smem_points;
-  if (bytes > (size_t)avail) return cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(fps_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(fps_cluster_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)B * kCluster);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = st;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cudaLaunchConfig_t cfg;
+  cudaError_t e = perrow_launch_config(B, smem_points, static_cast<cudaStream_t>(stream), attr, &cfg);
+  if (e != cudaSuccess) return e;
   e = cudaLaunchKernelEx(&cfg, fps_cluster_kernel, pts, mask, N, npoint, slice_len, smem_points,
                          reinterpret_cast<float4*>(scratch), out);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// How many of fps_perrow's clusters the card holds at once with smem_points
+// float4 of shared memory a CTA (cudaOccupancyMaxActiveClusters on the
+// launch configuration fps_perrow uses); a launch of more rows runs its rows
+// in waves. Launches nothing. Returns cudaError_t.
+extern "C" int fps_cluster_occupancy(int smem_points, int* clusters) {
+  if (smem_points < 0 || clusters == nullptr) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cudaError_t e = perrow_launch_config(1, smem_points, nullptr, attr, &cfg);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveClusters(clusters, fps_cluster_kernel, &cfg);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

@@ -129,6 +129,7 @@ _SIGNATURES = {
     ("fps", "fps"): (_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR),
     ("fps", "fps_perrow"): (_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR),
     ("fps", "fps_shared_bytes"): (_INT_OUT,),
+    ("fps", "fps_cluster_occupancy"): (_INT, _INT_OUT),
     ("ballquery", "ball_query"): (
         _PTR, _PTR, _INT, _INT, _INT, _FLOAT, _INT, _INT, _PTR, _PTR, _PTR,
     ),

@@ -121,6 +121,18 @@ def shared_bytes(device: torch.device) -> int:
     return _shared_bytes[index]
 
 
+def cluster_occupancy(n: int, device: torch.device) -> int:
+    """Clusters of ``fps_perrow``'s kernel the card on ``device`` runs at
+    once for rows of ``n`` points (``cudaOccupancyMaxActiveClusters``,
+    csrc/fps.cu); a launch of more rows runs in waves."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    smem_points = cluster_split(n, shared_bytes(device))[1]
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _cuda.launch(_cuda.function("fps", "fps_cluster_occupancy"), smem_points, ctypes.byref(out))
+    return out.value
+
+
 def farthest_point_sample(points: torch.Tensor, npoint: int, valid_mask=None):
     """(B, N, 3) -> (B, npoint) int32; see reference.farthest_point_sample."""
     _cuda.check_xyz(points, "points")

@@ -1,4 +1,4 @@
-"""Two diagnostics of the port's synthetic recipe run (mvpnet_torch/e2e_run.py).
+"""Three diagnostics of the port's synthetic recipe run (mvpnet_torch/e2e_run.py).
 
     python scripts/torch_e2e_probe.py r5-corpus --out runs/torch_e2e/r5_seed0 \\
         --steps-2d 1500 --steps-3d 2500 --eval-scenes 4 --scenes 16 --objects 12 --seed 0
@@ -18,6 +18,19 @@ one (``e2e_run.compare_estimators``) on the held-out scenes with the trained
 weights twice: in the config's bf16, and in f32 (``model.unet.dtype``,
 ``model.pn2.dtype``). It writes ``<out>/estimators.json`` and deletes the
 checkpoints.
+
+    python scripts/torch_e2e_probe.py r5-deterministic [--bf16-products] --out runs/torch_e2e/f3_bf16_seed0 \\
+        --steps-2d 1500 --steps-3d 2500 --eval-scenes 4 --scenes 16 --objects 12 --seed 0
+
+runs ``r5-corpus``'s run in the deterministic mode (``train.deterministic=true``,
+one data worker, ``CUBLAS_WORKSPACE_CONFIG`` set before torch starts). With
+``--bf16-products`` the two f32 products that feed the fusion kNN round
+their inputs to bf16 and keep f32 products and sums, as a TPU's default
+matmul precision does to ``mvpnet_tpu/core/camera.py:51`` (the lift's
+rotation) and ``mvpnet_tpu/core/augment.py:34`` (the augmentation's
+rotation): inside this probe only (``bf16_products``), the package's code
+unchanged. ``results.json`` gains ``"deterministic": true`` and
+``"bf16_products"``.
 
 Run from the repository's root; ``--device cpu`` runs on the CPU.
 """
@@ -66,6 +79,69 @@ def r5_run(argv) -> dict:
     return results
 
 
+DETERMINISTIC = ["train.deterministic=true", "data.num_workers=1"]
+
+
+def _bf16(t):
+    """``t`` rounded to bf16 (nearest even) and back to its dtype."""
+    import torch
+
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+@contextlib.contextmanager
+def bf16_products():
+    """The lift's rotation (``core.camera.world_from_camera``) and the
+    augmentation's (the ``torch.matmul`` of ``core.augment``) take their
+    inputs rounded to bf16, products and sums in f32."""
+    import torch
+
+    from mvpnet_torch.core import augment, camera
+
+    world_from_camera = camera.world_from_camera
+
+    def rounded_world_from_camera(xyz_cam, pose):
+        x, y, z = (_bf16(xyz_cam[..., i]) for i in range(3))
+        rows = []
+        for i in range(3):
+            r = pose[..., i, :][..., None, None, :]
+            rot = _bf16(r[..., :3])  # the einsum's operand; the translation adds in f32 after it
+            rows.append(((rot[..., 0] * x + rot[..., 1] * y) + rot[..., 2] * z) + r[..., 3])
+        return torch.stack(rows, dim=-1)
+
+    class _RoundedTorch:
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        @staticmethod
+        def matmul(a, b):
+            return torch.matmul(_bf16(a), _bf16(b))
+
+    camera.world_from_camera = rounded_world_from_camera
+    augment.torch = _RoundedTorch()
+    try:
+        yield
+    finally:
+        camera.world_from_camera = world_from_camera
+        augment.torch = torch
+
+
+def deterministic_run(argv) -> dict:
+    rounded = "--bf16-products" in argv
+    argv = [a for a in argv if a != "--bf16-products"] + DETERMINISTIC
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
+    with bf16_products() if rounded else contextlib.nullcontext():
+        results = r5_run(argv)
+    out = argv[argv.index("--out") + 1] if "--out" in argv else "outputs/e2e_run"
+    results.update(deterministic=True, bf16_products=rounded)
+    with open(f"{out}/results.json", "w") as f:
+        json.dump(results, f, indent=2)
+    return results
+
+
 def estimators(argv) -> dict:
     import torch
 
@@ -109,9 +185,10 @@ def estimators(argv) -> dict:
 
 def main(argv=None) -> dict:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if not argv or argv[0] not in ("r5-corpus", "estimators"):
+    commands = {"r5-corpus": r5_run, "r5-deterministic": deterministic_run, "estimators": estimators}
+    if not argv or argv[0] not in commands:
         raise SystemExit(__doc__)
-    return (r5_run if argv[0] == "r5-corpus" else estimators)(argv[1:])
+    return commands[argv[0]](argv[1:])
 
 
 if __name__ == "__main__":
