@@ -204,6 +204,17 @@ Phases, each of which fails the run with a nonzero exit:
      launches the chunk path's a forward, every kernel of the whole-scene
      path launched, the sharded-against-fused agreement printed. It prints
      the {"e2e": ...} line.
+ 12. robustness: mvpnet_torch.robustness's main in process (ROBUST_ARGS: a
+     few steps each of the 2D pretraining, the warm-started fusion training
+     and the xyz-only PointNet++ at full width on two synthetic scenes, then
+     the sweep over one held-out scene at every point budget, 8192 down to
+     SA1's 1024, both models restored from their checkpoints): every
+     results.json key, finite mIoUs in [0, 1], each stage's launches those
+     of its forwards, each sweep forward launching 1/4/0/4/4 (mvpnet_3d) or
+     0/4/0/4/4 (pn2ssg_xyz), and the first forward of each model at each
+     budget equal in its index ops to the same forward through the plain
+     versions (FPS at npoint = N, sparse balls and FP1 over 1024 refs at
+     the smallest budget). It prints the {"robustness": ...} line.
 Then it prints the {"kernels": [...]} line (seven kernels and the prep of
 rows 6 and 7, "morton_prep": their launches, each row's launches on the
 recipe's paths under "recipe_launches",
@@ -212,7 +223,8 @@ the train path's under "train_path", knn_prepared's under "fused_path";
 rows 6 and 7 at the train shape, row 6's subgroup gate under "scene_path",
 each row's launches on the dist phase's paths under "dist_launches", on
 the e2e phase's stages under "e2e_launches", on the shapes and runbook
-phases' paths under "shapes_launches"; rows 1-5 on config #3's train path
+phases' paths under "shapes_launches", on the robustness phase's stages and
+evaluations under "robustness_launches"; rows 1-5 on config #3's train path
 under "train32k_path"),
 the card line, and last
 {"ok": true, "device": {...}}.
@@ -297,6 +309,18 @@ E2E_ARGS = ["--steps-2d", str(E2E_STEPS), "--steps-3d", str(E2E_STEPS), "--eval-
             "--objects", "6", "--seed", "0", f"train.val_steps={E2E_VAL_STEPS}"]
 E2E_KEYS = {"val_2d_miou", "val_3d_miou", "whole_scene_single", "whole_scene_sharded", "steps_2d", "steps_3d",
             "devices", "eval_scenes", "seed", "zero_iou_classes", "absent_classes", "seconds", "launches"}
+# the robustness phase: robustness.main in process at full width, ROBUST_STEPS
+# steps a stage on two synthetic training scenes, validation cut to
+# ROBUST_VAL_STEPS batches, the sweep over one held-out scene at every budget
+ROBUST_STEPS = 4
+ROBUST_VAL_STEPS = 2
+ROBUST_ARGS = ["--steps-2d", str(ROBUST_STEPS), "--steps-3d", str(ROBUST_STEPS), "--eval-scenes", "1", "--seed",
+               "0", f"train.val_steps={ROBUST_VAL_STEPS}", "data.synthetic_scenes=2"]
+ROBUST_KEYS = {"budgets", "models", "fusion_degrades_more_gracefully", "devices", "seed", "eval_scenes", "steps_2d",
+               "steps_3d", "val_2d_miou", "val_3d_miou", "val_pn2ssg_xyz_miou", "seconds", "launches"}
+ROBUST_STAGES = {"train_2d": RECIPE_2D_LAUNCHES, "train_3d": TRAIN_LAUNCHES, "train_pn2ssg_xyz": BASELINE_LAUNCHES}
+# a sweep forward's launches, by model: the chunk path's, the baseline's
+ROBUST_FORWARD = {"mvpnet_3d": EXPECTED_LAUNCHES, "pn2ssg_xyz": BASELINE_LAUNCHES}
 # the fusion kNN's kernel for each ops.set_fusion_variant
 VARIANT_KERNEL = {"demand": "knn_fusion", "gated": "knn_gated", "resident": "knn_resident"}
 TPU_KERNELS = {
@@ -1609,32 +1633,38 @@ def recipe_train(torch, ops, cfg, launches: dict, label: str, repeat: bool) -> d
 
 @contextlib.contextmanager
 def counting_forwards(torch, ops, whole_scene, what: str):
-    """Record each whole-scene forward's kernel launches and batch keys. The
-    first forward also runs again on its batch through the plain versions
-    (launching nothing): equal index-op outputs and the same argmax, so the
+    """Each whole-scene evaluation (one ``make_forward`` a call of
+    ``evaluate_scenes``): its model and budget, each forward's kernel
+    launches (differences, so that the caller's counts run on) and batch
+    keys; its first forward again on its batch through the plain versions
+    (reference_forward: equal index-op outputs, the same argmax), so the
     kernels are held at the shapes this path gives them."""
     make_forward = whole_scene.make_forward
-    log: list = []
-    reference: dict = {}
+    evals: list = []
 
     def counted(model, cfg):
         forward_fn = make_forward(model, cfg)
+        run = {"model": cfg.model.name, "budget": cfg.data.num_points, "launches": [], "keys": [],
+               "reference": None}
+        evals.append(run)
 
         def inner(batch):
-            first = not log
-            ops.reset_launch_counts()
+            first = run["reference"] is None
+            before = ops.launch_counts()
             with recording(ops) if first else contextlib.nullcontext() as got_log:
                 out = forward_fn(batch)
             torch.cuda.synchronize()
-            log.append((ops.launch_counts(), sorted(batch)))
+            run["launches"].append({k: n - before[k] for k, n in ops.launch_counts().items()})
+            run["keys"].append(sorted(batch))
             if first:
-                reference.update(reference_forward(torch, ops, forward_fn, batch, out, got_log, what))
+                run["reference"] = reference_forward(torch, ops, forward_fn, batch, out, got_log,
+                                                     f"{what} ({run['model']} at {run['budget']} points)")
             return out
         return inner
 
     whole_scene.make_forward = counted
     try:
-        yield log, reference
+        yield evals
     finally:
         whole_scene.make_forward = make_forward
 
@@ -1643,12 +1673,12 @@ def reference_forward(torch, ops, forward_fn, batch, got, got_log, what: str) ->
     """``batch`` again through the plain versions; compared with the kernels' run."""
     ops.set_impl("reference")
     try:
-        ops.reset_launch_counts()
+        before = ops.launch_counts()
         with recording(ops) as want_log:
             want = forward_fn(batch)
         torch.cuda.synchronize()
-        if any(ops.launch_counts().values()):
-            fail(f"{what} reference forward launched kernels: {ops.launch_counts()}")
+        if ops.launch_counts() != before:
+            fail(f"{what} reference forward launched kernels: {before} -> {ops.launch_counts()}")
     finally:
         ops.set_impl("auto")
     n_equal = compare_logs(torch, got_log, want_log, what)
@@ -1686,11 +1716,12 @@ def test_3d_run(torch, ops, cfg_path, overrides, launches: dict, export=None) ->
     argv = ["--cfg", cfg_path] + (["--export", export] if export else []) + overrides
     what = f"test_3d {cfg.model.name}"
     t0 = time.perf_counter()
-    with counting_forwards(torch, ops, whole_scene, what) as (log, reference):
+    with counting_forwards(torch, ops, whole_scene, what) as evals:
         results = cli_json(test_3d.main, argv)
     seconds = time.perf_counter() - t0
-    if not log or not reference:
-        fail(f"{what}: {len(log)} forwards, reference check {reference}")
+    if len(evals) != 1 or not evals[0]["launches"]:
+        fail(f"{what}: evaluations {evals}")
+    log, reference = list(zip(evals[0]["launches"], evals[0]["keys"])), evals[0]["reference"]
     for i, (counts, keys) in enumerate(log):
         if counts != launches:
             fail(f"{what} forward {i}: kernel launches {counts}, expected {launches}")
@@ -2426,6 +2457,88 @@ def e2e_launches(summary: dict, name: str) -> dict:
             "train_3d_step": stages["train_3d"][name] / summary["forwards_3d"]}
 
 
+def robustness_phase(torch) -> dict:
+    """12: mvpnet_torch.robustness's main in process (ROBUST_ARGS: the 2D
+    pretraining, the warm-started fusion training and the xyz-only baseline
+    at full width, then the sweep restoring both from their checkpoints at
+    every budget): every results.json key, finite mIoUs in [0, 1], each
+    stage's launches those of its forwards, each sweep forward launching its
+    model's kernels (rows 1-4 for mvpnet_3d, rows 2-4 for the baseline), the
+    first forward of each model at each budget equal in its index ops to the
+    same forward through the plain versions; the launch counts set to 0 just
+    before and read just after."""
+    import shutil
+
+    from mvpnet_torch import ops, robustness
+    from mvpnet_torch.eval import whole_scene
+
+    t0 = time.perf_counter()
+    directory = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs", "chip_smoke_robustness")
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        with counting_forwards(torch, ops, whole_scene, "robustness") as evals:
+            ops.reset_launch_counts()
+            results = robustness.main(["--out", directory, *ROBUST_ARGS])
+            total = ops.launch_counts()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    if set(results) != ROBUST_KEYS:
+        fail(f"robustness results.json keys {sorted(results)}, want {sorted(ROBUST_KEYS)}")
+    mious = [results[k] for k in ("val_2d_miou", "val_3d_miou", "val_pn2ssg_xyz_miou")]
+    mious += [v for m in results["models"].values() for v in m["miou"].values()]
+    if not all(np.isfinite(m) and 0.0 <= m <= 1.0 for m in mious):
+        fail(f"robustness mIoUs {mious}")
+    budgets = results["budgets"]
+    if [(e["model"], e["budget"]) for e in evals] != [(m, b) for m in ("mvpnet_3d", "pn2ssg") for b in budgets]:
+        fail(f"robustness evaluations {[(e['model'], e['budget']) for e in evals]}")
+    launches = results["launches"]
+    forwards = ROBUST_STEPS + 2 * ROBUST_VAL_STEPS  # validation at the half and at the end
+    for stage, per in ROBUST_STAGES.items():
+        if launches[stage] != {k: n * forwards for k, n in per.items()}:
+            fail(f"robustness {stage}: launches {launches[stage]}, want {per} x {forwards} forwards")
+    rows = []
+    for run, name in zip(evals, [m for m in robustness.CONFIGS for _ in budgets]):
+        want = ROBUST_FORWARD[name]
+        if not run["launches"] or any(c != want for c in run["launches"]):
+            fail(f"robustness {name} at {run['budget']}: forwards' launches {run['launches']}, want {want} each")
+        got = launches["eval"][name][str(run["budget"])]
+        if got != {k: n * len(run["launches"]) for k, n in want.items()}:
+            fail(f"robustness {name} at {run['budget']}: launches {got} over {len(run['launches'])} forwards")
+        rows.append({"model": name, "budget": run["budget"], "forwards": len(run["launches"]),
+                     "launches_per_forward": run["launches"][0], "reference_forward": run["reference"]})
+    every = {k: sum(launches[s][k] for s in ROBUST_STAGES)
+             + sum(c[k] for m in launches["eval"].values() for c in m.values()) for k in total}
+    if every != total:
+        fail(f"robustness stages' and evaluations' launches do not add up to the run's {total}")
+    seconds = time.perf_counter() - t0
+    for row in rows:
+        ref = row["reference_forward"]
+        print(f"  robustness {row['model']} at {row['budget']} points: {row['forwards']} forwards each launching "
+              f"{row['launches_per_forward']}; first forward through the plain versions: "
+              f"{ref['index_op_outputs_equal']} index-op outputs equal, argmax agreement {ref['argmax_agreement']}, "
+              f"first output shapes {ref['first_output_shapes']}", flush=True)
+    curves = {name: m["miou"] for name, m in results["models"].items()}
+    print(f"  robustness: mIoU by budget {curves}, relative at 1024 "
+          f"{ {n: m['relative_at_min_budget'] for n, m in results['models'].items()} }, fusion degrades more "
+          f"gracefully: {results['fusion_degrades_more_gracefully']}; stage seconds "
+          f"{ {k: round(v, 1) for k, v in results['seconds'].items() if k != 'eval'} }; phase {seconds:.1f} s",
+          flush=True)
+    return {"results": results, "evaluations": rows, "forwards_a_stage": forwards, "seconds": seconds}
+
+
+def robustness_launches(summary: dict, name: str) -> dict:
+    """A kernel's launches in each training stage and each sweep evaluation
+    of the robustness phase, and in the first sweep forward of each model
+    (the phase holds every forward of a model to the same counts)."""
+    launches = summary["results"]["launches"]
+    out = {stage: launches[stage][name] for stage in ROBUST_STAGES}
+    for model, curve in launches["eval"].items():
+        out.update({f"{model}_{budget}": counts[name] for budget, counts in curve.items()})
+        first = next(row for row in summary["evaluations"] if row["model"] == model)
+        out[f"{model}_forward"] = first["launches_per_forward"][name]
+    return out
+
+
 def close(torch, what: str, got, want, tol: float, cos_min: float) -> dict:
     """Hold ``got`` to ``want``: max |got - want| < tol and cosine >
     cos_min; returns both."""
@@ -2815,6 +2928,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     print("e2e phase:", flush=True)
     e2e = e2e_phase(torch)
+    torch.cuda.empty_cache()
+    print("robustness phase:", flush=True)
+    robust = robustness_phase(torch)
 
     def path(row):  # a row's numbers, nested under another row of the same kernel
         return {k: v for k, v in row.items() if k not in ("name", "route", "source", "replaces")}
@@ -2836,6 +2952,7 @@ def main() -> None:
         row["dist_launches"] = dist_launches(dist, row["name"])
         row["e2e_launches"] = e2e_launches(e2e, row["name"])
         row["shapes_launches"] = shapes_launches(shapes, runbook, row["name"])
+        row["robustness_launches"] = robustness_launches(robust, row["name"])
         if row["name"] in shapes_rows:  # config #3's train path
             row["train32k_path"] = path(shapes_rows[row["name"]])
     print(json.dumps({"slice": summary}), flush=True)
@@ -2848,6 +2965,7 @@ def main() -> None:
     print(json.dumps({"shapes": shapes}), flush=True)
     print(json.dumps({"runbook": runbook}), flush=True)
     print(json.dumps({"e2e": e2e}), flush=True)
+    print(json.dumps({"robustness": robust}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

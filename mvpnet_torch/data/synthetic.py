@@ -124,14 +124,6 @@ def make_scene(
     rng = np.random.default_rng(seed)
     surfaces = []  # (points, label)
 
-    def class_color(c):
-        # deterministic distinct color per class + small texture noise
-        base = np.array(
-            [((c * 37) % 255) / 255.0, ((c * 91) % 255) / 255.0, ((c * 151) % 255) / 255.0],
-            np.float32,
-        )
-        return base
-
     n_floor = num_points // 4
     floor = np.stack(
         [
@@ -176,7 +168,8 @@ def make_scene(
     labels = np.concatenate(
         [np.full(len(s[0]), s[1], np.int32) for s in surfaces]
     )
-    colors = np.stack([class_color(c) for c in labels]).astype(np.float32)
+    # deterministic distinct color per class + small texture noise
+    colors = (np.stack([labels * 37 % 255, labels * 91 % 255, labels * 151 % 255], -1) / 255.0).astype(np.float32)
     colors = np.clip(colors + rng.normal(0, 0.05, colors.shape), 0, 1).astype(
         np.float32
     )

@@ -56,6 +56,22 @@ def card_line(device) -> str:
     return out.strip().splitlines()[device.index or 0]
 
 
+def measured(device, fn) -> tuple:
+    """``fn()``'s result, its wall seconds (the card synchronized after it)
+    and the kernel launches it made."""
+    import torch
+
+    from mvpnet_torch import ops
+
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    return out, seconds, {k: n - before[k] for k, n in ops.launch_counts().items()}
+
+
 def class_counts(scenes, num_classes: int) -> np.ndarray:
     """Labelled points of each class over ``scenes``."""
     labels = np.concatenate([np.asarray(s.labels, np.int64) for s in scenes])
@@ -97,6 +113,21 @@ def compare_estimators(model, cfg, scenes, space: int = 2) -> dict:
             "miou_sharded": evals["sharded"].results()["miou"], "miou_fused": evals["fused"].results()["miou"]}
 
 
+def train_overrides(steps: int, seed: int, val_every: int | None = None) -> list:
+    """The recipe's training policy for a stage of ``steps`` steps:
+    validation (10 batches) every ``val_every`` steps (by default at the half
+    and at the end), one checkpoint at the end, a log line every 20 steps."""
+    return [
+        f"train.max_steps={steps}",
+        f"train.val_every={val_every or max(steps // 2, 1)}",
+        "train.val_steps=10",
+        f"train.ckpt_every={steps}",
+        "train.log_every=20",
+        "train.donate=true",
+        f"train.seed={seed}",
+    ]
+
+
 def stage_configs(out: str, steps_2d: int, steps_3d: int, scenes: int, objects: int, seed: int = 0,
                   opts=()) -> tuple:
     """The two training stages' configs, as ``tools/e2e_run.py`` builds
@@ -104,34 +135,25 @@ def stage_configs(out: str, steps_2d: int, steps_3d: int, scenes: int, objects: 
     ``out``/mvpnet_3d; ``opts`` override both."""
     from mvpnet_torch.config import load_config
 
-    common = [
+    data = [
         "data.name=synthetic",
         "data.num_classes=20",
         f"data.synthetic_scenes={scenes}",
         f"data.synthetic_objects={objects}",
-        "train.log_every=20",
-        "train.donate=true",
-        f"train.seed={seed}",
     ]
     out2d = f"{out}/sem_seg_2d"
     cfg2d = load_config(None, [
         "model.name=sem_seg_2d",
         "data.sampling=frames",
-        f"train.max_steps={steps_2d}",
-        f"train.val_every={steps_2d}",
-        "train.val_steps=10",
-        f"train.ckpt_every={steps_2d}",
+        *train_overrides(steps_2d, seed, val_every=steps_2d),
         f"output_dir={out2d}",
-    ] + common + list(opts))
+    ] + data + list(opts))
     cfg3d = load_config(None, [
         "model.name=mvpnet_3d",
         f"model.pretrained_2d={out2d}/checkpoints",
-        f"train.max_steps={steps_3d}",
-        f"train.val_every={max(steps_3d // 2, 1)}",
-        "train.val_steps=10",
-        f"train.ckpt_every={steps_3d}",
+        *train_overrides(steps_3d, seed),
         f"output_dir={out}/mvpnet_3d",
-    ] + common + list(opts))
+    ] + data + list(opts))
     return cfg2d, cfg3d
 
 
@@ -151,7 +173,6 @@ def main(argv=None) -> dict:
     args = ap.parse_intermixed_args(argv)
     import torch
 
-    from mvpnet_torch import ops
     from mvpnet_torch.data.pipeline import build_dataset
     from mvpnet_torch.entry import resolve_device
     from mvpnet_torch.eval.whole_scene import evaluate_scenes
@@ -164,13 +185,7 @@ def main(argv=None) -> dict:
     seconds, launches = {}, {}
 
     def stage(name, fn):
-        before = ops.launch_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        seconds[name] = time.perf_counter() - t0
-        launches[name] = {k: n - before[k] for k, n in ops.launch_counts().items()}
+        out, seconds[name], launches[name] = measured(device, fn)
         return out
 
     # ---- stage 1: frame-level 2D pretraining ----
