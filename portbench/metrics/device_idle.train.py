@@ -1,0 +1,13 @@
+"""Share of the traced window in which no operation ran on the device: one
+less the union of the device operations' intervals over the window."""
+
+LAYER = "device"
+UNIT = "%"
+MOVES = "train_chunks_per_s"
+SOURCE = "device_trace"
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s() / run.trace.window_s)
