@@ -1300,8 +1300,7 @@ def scene_fusion_inputs(torch, cfg, scene):
     from mvpnet_torch.eval import whole_scene
     from mvpnet_torch.train.step import prepare_batch
 
-    centers = whole_scene.enumerate_chunk_centers(scene.points, cfg.data.chunk_size, cfg.data.chunk_stride)
-    samples = list(whole_scene._iter_scene_samples(scene, cfg, centers, 0))
+    samples = list(whole_scene._iter_scene_samples(scene, cfg, whole_scene.scene_windows(scene, cfg), 0))
     for s in samples:
         s.pop("point_idx")
         s.pop("colors")

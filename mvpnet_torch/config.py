@@ -214,8 +214,9 @@ class TrainConfig:
     # batch when per-microbatch valid counts are equal); BN batch stats see
     # microbatch-sized batches.
     grad_accum: int = 1
-    # capture a jax.profiler trace for steps [profile_start, profile_stop)
-    # into <output_dir>/profile; 0/0 disables
+    # capture a torch.profiler trace (kernels and the port's spans,
+    # mvpnet_torch/tracing.py) for steps [profile_start, profile_stop) into
+    # <output_dir>/profile/trace.json; 0/0 disables
     profile_start: int = 0
     profile_stop: int = 0
     # the port's own key: deterministic algorithms only (train.loop.

@@ -21,6 +21,7 @@ from typing import Iterator, Sequence
 import numpy as np
 import torch
 
+from mvpnet_torch import tracing
 from mvpnet_torch.config import DataConfig
 from mvpnet_torch.data.synthetic import Scene, make_scene
 from mvpnet_torch.data.view_select import select_views_for_chunk
@@ -99,15 +100,16 @@ def make_chunk_sample(
             if rng is not None
             else np.arange(cfg.max_candidate_frames)
         )
-    frames = select_views_for_chunk(
-        chunk_pts,
-        scene.depth,
-        scene.poses,
-        scene.intrinsics,
-        V,
-        candidate_frames=candidates,
-        rng=rng,
-    )
+    with tracing.span("data.view_select"):
+        frames = select_views_for_chunk(
+            chunk_pts,
+            scene.depth,
+            scene.poses,
+            scene.intrinsics,
+            V,
+            candidate_frames=candidates,
+            rng=rng,
+        )
 
     if cfg.compact_transfer:
         # points as int16 mm: +-32.7 m range, 0.5 mm quantization; class ids
@@ -307,16 +309,23 @@ class PrefetchIterator:
             except queue.Full:
                 continue
 
+    def _produce(self, batches) -> None:
+        """Build one batch and queue it (spans ``data.build``, ``data.put_wait``)."""
+        with tracing.span("data.build"):
+            item = next(batches)
+        with tracing.span("data.put_wait"):
+            self._enqueue(item)
+
     def _worker(self, batches):
         try:
             while not self._stop.is_set():
                 if batches is not None:
-                    self._enqueue(next(batches))
+                    self._produce(batches)
                 else:
                     # the shared stream: taken and queued under one lock, so
                     # its order holds and the end comes after its last batch
                     with self._lock:
-                        self._enqueue(next(self._shared))
+                        self._produce(self._shared)
         except StopIteration:
             self._enqueue(_END)
         except BaseException as e:  # carried to the consumer
@@ -358,6 +367,10 @@ class PrefetchIterator:
         return self._put(item)
 
     def __next__(self):
+        with tracing.span("data.next"):
+            return self._next()
+
+    def _next(self):
         if self._ready_exc is not None:
             exc, self._ready_exc = self._ready_exc, None
             self.close()
@@ -365,7 +378,10 @@ class PrefetchIterator:
         if self._ready is not None:
             item, self._ready = self._ready, None
         else:
-            item = self._transfer(self._queue.get())
+            with tracing.span("data.queue_wait"):
+                item = self._queue.get()
+            with tracing.span("data.transfer"):
+                item = self._transfer(item)
         if item is _END:
             raise StopIteration
         if isinstance(item, _WorkerError):
@@ -374,9 +390,12 @@ class PrefetchIterator:
         # issue the next batch's copy now; a failure there must not lose the
         # current batch, so it is raised by the next call
         try:
-            self._ready = self._transfer(self._queue.get_nowait())
+            ahead = self._queue.get_nowait()
         except queue.Empty:
-            pass
+            return item
+        try:
+            with tracing.span("data.transfer"):
+                self._ready = self._transfer(ahead)
         except BaseException as e:
             self._ready_exc = e
         return item

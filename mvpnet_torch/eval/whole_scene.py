@@ -9,7 +9,11 @@ benchmark-format export (20-class -> NYU40 ids).
 
 The host builds chunk samples in a thread pool while the device runs the
 forwards; the device keeps the (P, num_classes) accumulator, and the host
-reads it once per scene.
+reads it once per scene. ``predict_scene``'s spans (``tracing``):
+``scene.predict`` over ``scene.windows``, ``scene.chunk_wait``,
+``scene.transfer``, ``scene.forward``, ``scene.accumulate``,
+``scene.readback`` and ``scene.nn_fill``, and ``scene.chunk_build`` on the
+pool's threads.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from mvpnet_torch import tracing
 from mvpnet_torch.config import Config
 from mvpnet_torch.data.meta import CLASS_NAMES, remap_to_nyu40
 from mvpnet_torch.data.pipeline import _scene_grid_index, collate, make_chunk_sample
@@ -106,32 +111,40 @@ def nn_fill_uncovered(points: np.ndarray, logits_acc: np.ndarray, counts: np.nda
         logits_acc[uncovered] = logits_acc[~uncovered][nn]
 
 
-def _iter_scene_samples(scene: Scene, cfg: Config, centers, num_workers: int):
-    """Yield chunk samples for every occupied window, in window order. With
-    ``num_workers > 0`` a thread pool builds them with a bounded number in
-    flight, so view selection (mostly the native greedy cover, which releases
-    the GIL) overlaps the device forwards."""
-    occupied = occupied_centers(scene.points, centers, cfg.data.chunk_size / 2 + cfg.data.chunk_margin)
+def scene_windows(scene: Scene, cfg: Config) -> list:
+    """The occupied window centers of ``scene``, in window order; builds the
+    scene's grid index (``_scene_grid_index``) that chunk sampling queries."""
+    centers = enumerate_chunk_centers(scene.points, cfg.data.chunk_size, cfg.data.chunk_stride)
+    _scene_grid_index(scene)  # shared by the pool's threads, built once
+    return occupied_centers(scene.points, centers, cfg.data.chunk_size / 2 + cfg.data.chunk_margin)
 
-    def build(center):
-        return make_chunk_sample(scene, cfg.data, center_xy=center, num_views=cfg.data.num_views_eval, rng=None)
+
+def _iter_scene_samples(scene: Scene, cfg: Config, windows, num_workers: int):
+    """Yield chunk samples for the ``windows`` (``scene_windows``), in order.
+    With ``num_workers > 0`` a thread pool builds them with a bounded number
+    in flight, so view selection (mostly the native greedy cover, which
+    releases the GIL) overlaps the device forwards; a build's span
+    ``scene.chunk_build`` is a child of the span open where it was submitted."""
+
+    def build(center, parent=None):
+        with tracing.span("scene.chunk_build", parent):
+            return make_chunk_sample(scene, cfg.data, center_xy=center, num_views=cfg.data.num_views_eval, rng=None)
 
     if num_workers <= 0:
-        for center in occupied:
+        for center in windows:
             yield build(center)
         return
 
-    _scene_grid_index(scene)  # build the shared index once, not per thread
     with ThreadPoolExecutor(num_workers) as pool:
         inflight: deque = deque()
-        it = iter(occupied)
+        it = iter(windows)
         for center in itertools.islice(it, 2 * num_workers):
-            inflight.append(pool.submit(build, center))
+            inflight.append(pool.submit(build, center, tracing.current()))
         while inflight:
             yield inflight.popleft().result()
             nxt = next(it, None)
             if nxt is not None:
-                inflight.append(pool.submit(build, nxt))
+                inflight.append(pool.submit(build, nxt, tracing.current()))
 
 
 def model_device(model) -> torch.device:
@@ -163,9 +176,14 @@ def predict_scene(
     Runs on the model's device. Chunk windows go through ``forward_fn`` in
     groups of ``batch_size``; the last group runs at its own size, so every
     forward computes only real windows."""
-    forward_fn = forward_fn or make_forward(model, cfg)
+    with tracing.span("scene.predict"):
+        return _predict_scene(model, cfg, scene, batch_size, forward_fn or make_forward(model, cfg), num_workers)
+
+
+def _predict_scene(model, cfg: Config, scene: Scene, batch_size: int, forward_fn, num_workers: int | None):
     device = model_device(model)
-    centers = enumerate_chunk_centers(scene.points, cfg.data.chunk_size, cfg.data.chunk_stride)
+    with tracing.span("scene.windows"):
+        windows = scene_windows(scene, cfg)
     P = len(scene.points)
     C = cfg.data.num_classes
     workers = min(cfg.data.num_workers, os.cpu_count() or 1) if num_workers is None else num_workers
@@ -176,12 +194,22 @@ def predict_scene(
 
     def flush():
         if samples:
-            idx = torch.from_numpy(np.stack(idx_blocks)).to(device)
-            accum_scene_logits(acc, cnt, forward_fn(to_device(collate(samples), device)), idx)
+            with tracing.span("scene.transfer"):
+                idx = torch.from_numpy(np.stack(idx_blocks)).to(device)
+                batch = to_device(collate(samples), device)
+            with tracing.span("scene.forward"):
+                logits = forward_fn(batch)
+            with tracing.span("scene.accumulate"):
+                accum_scene_logits(acc, cnt, logits, idx)
             samples.clear()
             idx_blocks.clear()
 
-    for s in _iter_scene_samples(scene, cfg, centers, workers):
+    chunks = _iter_scene_samples(scene, cfg, windows, workers)
+    while True:
+        with tracing.span("scene.chunk_wait"):
+            s = next(chunks, None)
+        if s is None:
+            break
         idx_blocks.append(s.pop("point_idx"))
         if not cfg.data.include_colors:
             s.pop("colors", None)
@@ -190,8 +218,11 @@ def predict_scene(
             flush()
     flush()
 
-    logits_acc = acc.cpu().numpy()
-    nn_fill_uncovered(scene.points, logits_acc, cnt.cpu().numpy())
+    with tracing.span("scene.readback"):
+        logits_acc = acc.cpu().numpy()
+        counts = cnt.cpu().numpy()
+    with tracing.span("scene.nn_fill"):
+        nn_fill_uncovered(scene.points, logits_acc, counts)
     return logits_acc
 
 

@@ -15,6 +15,8 @@ is positional. ``remat_2d`` (set by ``models.build`` from
 fusion kNN through the space group's ring (``sharded_fusion_gather``) and
 re-splits the 3D net's batch to whole chunks (``dist.train_sp.resplit``);
 the 3D logits are then this rank's ``local_share`` of the chunks.
+The forward's spans (``tracing``): ``model.net_2d``, ``model.fusion_knn``,
+``model.aggregation``, ``model.net_3d``.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from mvpnet_torch import ops
+from mvpnet_torch import ops, tracing
 from mvpnet_torch.config import AggregationConfig, ModelConfig
 from mvpnet_torch.models.blocks import BatchNorm, SharedMLP
 from mvpnet_torch.models.pointnet2 import PN2SSG
@@ -103,7 +105,8 @@ class MVPNet3D(nn.Module):
         image_xyz = batch["image_xyz"]
         B, V, H, W, _ = images.shape
 
-        feat2d, logits_2d = self._net_2d(images.reshape(B * V, H, W, 3))
+        with tracing.span("model.net_2d"):
+            feat2d, logits_2d = self._net_2d(images.reshape(B * V, H, W, 3))
         pixel_feat = feat2d.reshape(B, V * H * W, feat2d.shape[-1])
         pixel_xyz = image_xyz.reshape(B, V * H * W, 3)
 
@@ -111,11 +114,14 @@ class MVPNet3D(nn.Module):
         if mesh is not None and mesh.space > 1:
             logits_3d = self._sharded_3d(mesh, points, pixel_xyz, pixel_feat)
         else:
-            _, knn_idx = ops.knn(points, pixel_xyz, self.cfg.aggregation.k)
-            grouped_feat = ops.group_points(pixel_feat, knn_idx)  # (B,N,K,C2d)
-            grouped_xyz = ops.group_points(pixel_xyz, knn_idx)  # (B,N,K,3)
-            fused = self.aggregation(points, grouped_xyz, grouped_feat)
-            logits_3d = self.net_3d(points, fused)
+            with tracing.span("model.fusion_knn"):
+                _, knn_idx = ops.knn(points, pixel_xyz, self.cfg.aggregation.k)
+                grouped_feat = ops.group_points(pixel_feat, knn_idx)  # (B,N,K,C2d)
+                grouped_xyz = ops.group_points(pixel_xyz, knn_idx)  # (B,N,K,3)
+            with tracing.span("model.aggregation"):
+                fused = self.aggregation(points, grouped_xyz, grouped_feat)
+            with tracing.span("model.net_3d"):
+                logits_3d = self.net_3d(points, fused)
         return logits_3d, logits_2d.reshape(B, V, H, W, -1)
 
     def _sharded_3d(self, mesh, points, pixel_xyz, pixel_feat):
@@ -124,12 +130,15 @@ class MVPNet3D(nn.Module):
         returns the logits of this rank's ``local_share``."""
         from mvpnet_torch.dist import train_sp
 
-        grouped_xyz, grouped_feat = train_sp.sharded_fusion_gather(
-            mesh, points, pixel_xyz, pixel_feat, self.cfg.aggregation.k
-        )
-        fused = self.aggregation(train_sp.point_slice(mesh, points), grouped_xyz, grouped_feat)
-        pts_3d, fused_3d = train_sp.resplit(mesh, points, fused)
-        logits_3d = self.net_3d(pts_3d, fused_3d, rows=train_sp.local_rows(mesh, points.shape[0]))
+        with tracing.span("model.fusion_knn"):
+            grouped_xyz, grouped_feat = train_sp.sharded_fusion_gather(
+                mesh, points, pixel_xyz, pixel_feat, self.cfg.aggregation.k
+            )
+        with tracing.span("model.aggregation"):
+            fused = self.aggregation(train_sp.point_slice(mesh, points), grouped_xyz, grouped_feat)
+        with tracing.span("model.net_3d"):
+            pts_3d, fused_3d = train_sp.resplit(mesh, points, fused)
+            logits_3d = self.net_3d(pts_3d, fused_3d, rows=train_sp.local_rows(mesh, points.shape[0]))
         if points.shape[0] % mesh.space:  # every chunk ran here: keep this rank's points
             logits_3d = train_sp.point_slice(mesh, logits_3d)
         return logits_3d

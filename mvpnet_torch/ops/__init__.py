@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import torch
 
+from mvpnet_torch import tracing
 from mvpnet_torch.ops import _library  # noqa: F401  (registers the mvpnet:: ops)
 from mvpnet_torch.ops import ballquery as _bq
 from mvpnet_torch.ops import fps as _fps
@@ -125,11 +126,13 @@ def _knn_search(queries, refs, k, impl, refs_coherent=False):
     if _plain(queries, impl):
         return _ref.knn(queries, refs, k)
     if _knn_bucketed.supported(queries.shape[1], refs.shape[1]):
+        # the pairs the fusion kernels scan, counted while a profiler records
+        scanned = tracing.pairs_counter(queries.device)
         if _fusion_variant == "gated":
-            return _knn_gated.knn(queries, refs, k, sort_refs=not refs_coherent)
+            return _knn_gated.knn(queries, refs, k, scanned, sort_refs=not refs_coherent)
         if _fusion_variant == "resident":
-            return _knn_resident.knn(queries, refs, k, sort_refs=not refs_coherent)
-        return _knn_bucketed.knn(queries, refs, k)
+            return _knn_resident.knn(queries, refs, k, scanned, sort_refs=not refs_coherent)
+        return _knn_bucketed.knn(queries, refs, k, scanned=scanned)
     return _knn.knn(queries, refs, k)
 
 
@@ -143,7 +146,7 @@ class _KnnFunction(torch.autograd.Function):
         if prepared is None or _plain(queries, impl):
             d, idx = _knn_search(queries, refs, k, impl, refs_coherent)
         else:  # refs prepared by knn_prepare: the fusion kernel's demand mode
-            d, idx = _knn_bucketed.knn_prepared(queries, prepared, k)
+            d, idx = _knn_bucketed.knn_prepared(queries, prepared, k, tracing.pairs_counter(queries.device))
         ctx.mark_non_differentiable(idx)
         ctx.save_for_backward(queries, refs, idx)
         return d, idx

@@ -15,7 +15,8 @@ launch. It takes the wrapper's tensors and ints and has
 What reads only shapes is decided by the public wrapper before the op
 (``knn_bucketed.route``'s mode, ``fps.route``'s kernel) and an export freezes
 it into the graph; what reads data or addresses runs inside the op. The
-gated searches' ``scanned``, the pair counter that chip_smoke.py passes, is
+fusion searches' ``scanned``, the pair counter that chip_smoke.py passes
+(and ``ops.knn`` while a profiler records, ``tracing.pairs_counter``), is
 declared mutated: the CUDA implementation adds to it when one is given, the
 CPU implementation leaves it.
 

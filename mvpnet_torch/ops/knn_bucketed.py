@@ -65,8 +65,9 @@ def slicing(B: int, M: int, N: int, num_sms: int) -> tuple[int, int]:
 def knn(queries: torch.Tensor, refs: torch.Tensor, k: int, mode: str | None = None, scanned=None):
     """(B, M, 3), (B, N, 3) -> (B, M, k) f32 squared distances, ascending,
     and (B, M, k) int32 indices; ties go to the lower index. ``mode``
-    overrides ``route``; ``scanned`` (demand mode), an int64 CUDA tensor of
-    one element, gets the (query, ref) pairs the kernel scanned added to it."""
+    overrides ``route``; ``scanned``, an int64 CUDA tensor of one element,
+    gets the (query, ref) pairs the kernel scanned added to it (every pair in
+    the brute mode)."""
     check_args(queries, refs, k)
     B, M, _ = queries.shape
     N = refs.shape[1]
@@ -85,6 +86,8 @@ def launch(queries, refs, k: int, mode: str, scanned=None):
         _, tile_n, _ = morton.demand_tiles(queries.shape[1], refs.shape[1])
         p = morton.prepare_refs(refs, tile_n, q.amin(dim=1, keepdim=True), q.amax(dim=1, keepdim=True))
         return launch_prepared(queries, p, k, scanned)
+    if scanned is not None:
+        scanned.add_(queries.shape[0] * queries.shape[1] * refs.shape[1])
     return _brute(queries, refs, k)
 
 

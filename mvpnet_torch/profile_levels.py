@@ -4,7 +4,7 @@
 
 For each path, takes the PointNet++ input points of one forward: the chunk
 request at the default Config() (the numpy batch of ``entry()``), the
-whole-scene forward at config #4 over ``profile_scene``'s synthetic scene (4
+whole-scene forward at config #4 over ``SCENE``, ``chip_smoke.py``'s synthetic scene (4
 windows of 102,400 points), and the train step at the training config (the
 first batch of the first prefetch worker's stream of ``train_entry()``'s
 synthetic training set, augmented from seed 0; the same in every run). It walks
@@ -55,7 +55,6 @@ from mvpnet_torch.eval import whole_scene
 from mvpnet_torch.models.pointnet2 import gather_points
 from mvpnet_torch.ops import KERNELS, _cuda, reference
 from mvpnet_torch.profile_request import _device_ms, card_line
-from mvpnet_torch.profile_scene import SCENE
 from mvpnet_torch.train.step import prepare_batch
 
 PATHS = ("chunk", "scene", "train")
@@ -64,6 +63,8 @@ SYMBOLS = {"fps": ("fps_shared_kernel",), "ball_query": ("ball_query_kernel",), 
            "knn_gated": ("knn_gated_kernel",), "knn_resident": ("knn_resident_kernel",)}
 FUSION_SYMBOLS = {"brute": ("knn_slice_kernel", "knn_merge_kernel"), "demand": ("knn_demand_kernel",)}
 FUSION_SUBSET = 256  # queries of each row of a fusion search held against the plain version
+# the scene path's scene: seed 0, 300,000 points, 96 frames, a 6 m room
+SCENE = dict(seed=0, num_points=300_000, num_frames=96, room=6.0)
 
 
 def path_points(path: str):
@@ -82,8 +83,7 @@ def path_points(path: str):
     else:
         cfg = load_config(HIGHRES_CONFIG)
         scene = make_scene(**SCENE)
-        centers = whole_scene.enumerate_chunk_centers(scene.points, cfg.data.chunk_size, cfg.data.chunk_stride)
-        samples = list(whole_scene._iter_scene_samples(scene, cfg, centers, 0))
+        samples = list(whole_scene._iter_scene_samples(scene, cfg, whole_scene.scene_windows(scene, cfg), 0))
         for s in samples:
             s.pop("point_idx")
             s.pop("colors")

@@ -241,8 +241,9 @@ def train(cfg: Config, *, max_steps: int | None = None, resume: bool = True, dev
 
 
 def _profile_window(cfg: Config, step: int, profiler):
-    """torch.profiler over steps [profile_start, profile_stop); the trace goes
-    to <output_dir>/profile/trace.json."""
+    """torch.profiler over steps [profile_start, profile_stop), which also
+    turns the port's spans on (``tracing``); the trace goes to
+    <output_dir>/profile/trace.json."""
     if step == cfg.train.profile_start:
         acts = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from mvpnet_torch import tracing
 from mvpnet_torch.config import Config
 from mvpnet_torch.core.augment import apply_chunk_augment, apply_frame_augment, sample_chunk_params, sample_frame_params
 from mvpnet_torch.core.camera import unproject_views
@@ -144,24 +145,36 @@ def make_train_step(cfg: Config, loss_fn, metric_fn, mesh=None):
     On a ``mesh`` the model is the rank's (DDP-wrapped when ranks share
     gradients), ``loss_fn`` and ``metric_fn`` those of
     ``loss_and_metrics(cfg, mesh)``; microbatches split each rank's local
-    batch."""
+    batch.
+
+    Spans (``tracing``): ``train.step``, and below it ``train.prepare``,
+    ``train.forward`` (the model, the loss and the metrics) and
+    ``train.backward`` for each microbatch, then ``train.optimizer``."""
     accum = max(1, int(cfg.train.grad_accum))
 
     def micro_step(model, batch, generator):
-        model_batch = _model_batch(cfg, model, batch, training=True, generator=generator, mesh=mesh)
-        out = model(model_batch)
-        loss = loss_fn(out, model_batch)
-        loss.backward()
-        with torch.no_grad():
-            metrics = metric_fn(out, model_batch)
+        with tracing.span("train.prepare"):
+            model_batch = _model_batch(cfg, model, batch, training=True, generator=generator, mesh=mesh)
+        with tracing.span("train.forward"):
+            out = model(model_batch)
+            loss = loss_fn(out, model_batch)
+            with torch.no_grad():
+                metrics = metric_fn(out, model_batch)
+        with tracing.span("train.backward"):
+            loss.backward()
         metrics["loss"] = _report(loss, mesh)
         return metrics
 
     def train_step(model, optimizer, batch: dict, generator: torch.Generator | None = None) -> dict:
+        with tracing.span("train.step"):
+            return _train_step(model, optimizer, batch, generator)
+
+    def _train_step(model, optimizer, batch, generator):
         optimizer.zero_grad()
         if accum == 1:
             metrics = micro_step(model, batch, generator)
-            optimizer.step()
+            with tracing.span("train.optimizer"):
+                optimizer.step()
             return metrics
         B = next(iter(batch.values())).shape[0]
         if B % accum:
@@ -172,11 +185,12 @@ def make_train_step(cfg: Config, loss_fn, metric_fn, mesh=None):
             micro = {k: v[a * size : (a + 1) * size] for k, v in batch.items()}
             for k, v in micro_step(model, micro, generator).items():
                 stack.setdefault(k, []).append(v)
-        with torch.no_grad():
-            for p in optimizer.params:
-                if p.grad is not None:
-                    p.grad.div_(accum)
-        optimizer.step()
+        with tracing.span("train.optimizer"):
+            with torch.no_grad():
+                for p in optimizer.params:
+                    if p.grad is not None:
+                        p.grad.div_(accum)
+            optimizer.step()
         # counts (the confusion matrix) add up; rates and losses average
         return {
             k: torch.stack(v).sum(0) if k == "confusion" else torch.stack(v).float().mean(0)
