@@ -42,8 +42,12 @@ Phases, each of which fails the run with a nonzero exit:
      which has exactly 4 occupied windows, so one forward of B=4:
        (a) evaluate_scenes through the kernels: the forward must launch each
            kernel the expected number of times (fps_perrow once, at SA1),
-           the device accumulator must be finite and cover most points;
-           prints the scene's seconds, the ms of the forward and the mIoU;
+           and the NN fill row 4 once more where a point is left
+           uncovered; the device accumulator must be finite and cover most
+           points; prints the scene's seconds, the ms of the forward and
+           the mIoU; the fill's search (ops.nearest) on the points the
+           windows left uncovered, held against its plain version on
+           FILL_SUBSET of them and timed;
        (b) each kernel against its plain version on this path's inputs: the
            per-row FPS (the cluster kernel) at the full SA1 shape, masked,
            with npoint > N, and on one 2^19-point row whose slices overflow
@@ -55,7 +59,9 @@ Phases, each of which fails the run with a nonzero exit:
        (c) predict_scene through the kernels and with set_impl("reference")
            at the config's widths with data.num_points=16384 and
            data.num_views_eval=8 (SA1 rows of 16,384 points still take the
-           per-row FPS): equal index-op outputs, argmax agreement > 0.999;
+           per-row FPS): one forward's launches and the NN fill's, equal
+           index-op outputs (the fill's search among them), argmax
+           agreement > 0.999;
        (d) the fused estimator (evaluate_scenes(..., fused=True)): finite
            logits; and knn_prepared over the scene's prepared pixel cloud
            (ops.knn_prepare) with the first group of windows as queries: equal
@@ -188,13 +194,15 @@ Phases, each of which fails the run with a nonzero exit:
  10. runbook: python -m mvpnet_torch.runbook --smoke on a fake raw ScanNet
      tree (write_raw_scan, RAW_SCANS scans) in outputs/chip_smoke_runbook
      (removed after): every stage exits 0; each test_3d mode's forwards
-     launch 1/4/0/4/4 (its log's launch line); the report has every key; a
+     launch 1/4/0/4/4 and its NN fills row 4 once a scene at most, none in
+     the sharded mode (its log's launch line); the report has every key; a
      second invocation runs no stage; runs/scannet_smoke_*.json unchanged.
      Then each test_3d stage's command again in process on the runbook's
      checkpoint and preprocessed scans, through the kernels and with
      set_impl("reference"): the index ops (and the fused mode's
-     knn_prepared) at the smoke shapes give equal outputs in the same
-     order, and the two runs' mIoUs are printed. It prints the
+     knn_prepared and the NN fill's nearest) at the smoke shapes give equal
+     outputs in the same order, as many fills as the log's launches say,
+     and the two runs' mIoUs are printed. It prints the
      {"runbook": ...} line.
  11. e2e: mvpnet_torch.e2e_run's main in process (E2E_ARGS: a few steps of
      2D pretraining and of the warm-started fusion training at full width on
@@ -210,16 +218,18 @@ Phases, each of which fails the run with a nonzero exit:
      the sweep over one held-out scene at every point budget, 8192 down to
      SA1's 1024, both models restored from their checkpoints): every
      results.json key, finite mIoUs in [0, 1], each stage's launches those
-     of its forwards, each sweep forward launching 1/4/0/4/4 (mvpnet_3d) or
-     0/4/0/4/4 (pn2ssg_xyz), and the first forward of each model at each
-     budget equal in its index ops to the same forward through the plain
-     versions (FPS at npoint = N, sparse balls and FP1 over 1024 refs at
-     the smallest budget). It prints the {"robustness": ...} line.
+     of its forwards and its NN fills (one a scene at most), each sweep
+     forward launching 1/4/0/4/4 (mvpnet_3d) or 0/4/0/4/4 (pn2ssg_xyz), and
+     the first forward of each model at each budget equal in its index ops
+     to the same forward through the plain versions (FPS at npoint = N,
+     sparse balls and FP1 over 1024 refs at the smallest budget). It prints
+     the {"robustness": ...} line.
 Then it prints the {"kernels": [...]} line (seven kernels and the prep of
 rows 6 and 7, "morton_prep": their launches, each row's launches on the
 recipe's paths under "recipe_launches",
 times and bounds on the scene path, the chunk path's under "chunk_path",
-the train path's under "train_path", knn_prepared's under "fused_path";
+the train path's under "train_path", knn_prepared's under "fused_path",
+the NN fill's under "nn_fill_path";
 rows 6 and 7 at the train shape, row 6's subgroup gate under "scene_path",
 each row's launches on the dist phase's paths under "dist_launches", on
 the e2e phase's stages under "e2e_launches", on the shapes and runbook
@@ -314,8 +324,9 @@ E2E_KEYS = {"val_2d_miou", "val_3d_miou", "whole_scene_single", "whole_scene_sha
 # ROBUST_VAL_STEPS batches, the sweep over one held-out scene at every budget
 ROBUST_STEPS = 4
 ROBUST_VAL_STEPS = 2
-ROBUST_ARGS = ["--steps-2d", str(ROBUST_STEPS), "--steps-3d", str(ROBUST_STEPS), "--eval-scenes", "1", "--seed",
-               "0", f"train.val_steps={ROBUST_VAL_STEPS}", "data.synthetic_scenes=2"]
+ROBUST_EVAL_SCENES = 1
+ROBUST_ARGS = ["--steps-2d", str(ROBUST_STEPS), "--steps-3d", str(ROBUST_STEPS), "--eval-scenes",
+               str(ROBUST_EVAL_SCENES), "--seed", "0", f"train.val_steps={ROBUST_VAL_STEPS}", "data.synthetic_scenes=2"]
 ROBUST_KEYS = {"budgets", "models", "fusion_degrades_more_gracefully", "devices", "seed", "eval_scenes", "steps_2d",
                "steps_3d", "val_2d_miou", "val_3d_miou", "val_pn2ssg_xyz_miou", "seconds", "launches"}
 ROBUST_STAGES = {"train_2d": RECIPE_2D_LAUNCHES, "train_3d": TRAIN_LAUNCHES, "train_pn2ssg_xyz": BASELINE_LAUNCHES}
@@ -343,6 +354,7 @@ SCENE_SHAPE = dict(num_points=300_000, num_frames=96, room=6.0)
 # (c): the scene path at reduced depth, where the plain versions run in time
 REDUCED = ["data.num_points=16384", "data.num_views_eval=8"]
 FUSION_SUBSET = 256  # queries of each row for the fusion kNN's plain version
+FILL_SUBSET = 4096  # the NN fill's queries (drawn from the seed) for its plain version
 # (e): config #4's windows at fewer points and views (data.num_points,
 # data.num_views_eval), searches of 5.0e9 to 6.3e10 (query, ref) pairs:
 # between the train shape (3.8e9, where row 1's brute mode is faster) and the
@@ -984,10 +996,20 @@ def capturing_accumulator(whole_scene):
         whole_scene.accum_scene_logits = saved
 
 
+def nn_fills(counts) -> int:
+    """Row 4 launches of a scene's NN fill (``whole_scene.nn_fill_device``)
+    given its points' window counts: one when some points are covered and
+    some are not, else none."""
+    return int(bool((counts == 0).any() and (counts > 0).any()))
+
+
 def scene_run(torch, evaluate, ops, whole_scene, scene, forwards: int, host_counts, label: str):
     """(a): evaluate_scenes over one scene through the kernels; checks the
-    launches, the device accumulator and its coverage."""
+    launches (the forwards' and the NN fill's), the device accumulator and
+    its coverage. Returns the forwards' launches, the fill's taken out."""
+    fills = nn_fills(host_counts)
     want = {name: n * forwards for name, n in SCENE_LAUNCHES.items()}
+    want["knn"] += fills
     ops.reset_launch_counts()
     with capturing_accumulator(whole_scene) as seen:
         t0 = time.perf_counter()
@@ -996,7 +1018,7 @@ def scene_run(torch, evaluate, ops, whole_scene, scene, forwards: int, host_coun
         seconds = time.perf_counter() - t0
     counts = ops.launch_counts()
     if counts != want:
-        fail(f"scene {label}: kernel launches {counts}, expected {want} ({forwards} forward(s))")
+        fail(f"scene {label}: kernel launches {counts}, expected {want} ({forwards} forward(s), {fills} NN fill)")
     acc, cnt = seen[-1]
     if not torch.isfinite(acc).all():
         fail(f"scene {label}: non-finite accumulated logits")
@@ -1005,9 +1027,33 @@ def scene_run(torch, evaluate, ops, whole_scene, scene, forwards: int, host_coun
     covered = (cnt > 0).float().mean().item()
     if covered <= 0.5:
         fail(f"scene {label}: only {covered:.3f} of the points covered")
-    print(f"  evaluate_scenes ({label}): {seconds:.3f} s, launches {counts}, covered {covered:.4f}, "
-          f"mIoU {results['miou']:.4f}", flush=True)
-    return seconds, covered, results, counts
+    print(f"  evaluate_scenes ({label}): {seconds:.3f} s, launches {counts} ({fills} of row 4 by the NN fill), "
+          f"covered {covered:.4f}, mIoU {results['miou']:.4f}", flush=True)
+    return seconds, covered, results, dict(counts, knn=counts["knn"] - fills)
+
+
+def nn_fill_case(torch, scene, host_counts) -> dict:
+    """(a): measure() case of the scene's NN fill at config #4 (``ops.nearest``,
+    row 4 with k=1): the points (a)'s windows left uncovered over those they
+    covered, in index order. FILL_SUBSET queries drawn from the seed are held
+    against the plain version (it sorts every query's full row)."""
+    from mvpnet_torch import ops
+
+    pts = torch.from_numpy(scene.points).cuda()
+    covered = torch.from_numpy(host_counts > 0).cuda()
+    q, r = pts[~covered].contiguous(), pts[covered].contiguous()
+    M, N = len(q), len(r)
+    sel = torch.randperm(M, generator=torch.Generator().manual_seed(SCENE_SEED))[:FILL_SUBSET].cuda()
+    q_sub = q[sel].contiguous()
+    return dict(
+        name="knn", shape=f"{M} q x {N} refs, k=1 (the NN fill)", reps=10,
+        kern=lambda: ops.nearest(q, r), check=lambda: ops.nearest(q, r)[sel],
+        plain=lambda: ops.nearest(q_sub, r, impl="reference"),
+        plain_shape=f"{len(sel)} of the queries, drawn from the seed",
+        library=lambda: cdist_topk(torch, q[None], r[None], 1), library_once=M * N > YARDSTICK_ONCE_PAIRS,
+        ops=9.0 * M * N, nbytes=4.0 * (3 * M + 3 * N + 2 * M),
+        extra={"queries": M, "refs": N},
+    )
 
 
 def scene_kernel_cases(torch, cfg, pts, pix):
@@ -1218,6 +1264,8 @@ def scene_phase(torch, evaluate, model, cfg):
             f"{pts.shape[0]}x{pts.shape[1]} queries over {pix.shape[1]} refs, k={k}, 8-row subgroup gate", reps=3,
         ))
         del pts, pix
+        fill_row = measure(torch, nn_fill_case(torch, scene, host_counts))
+    fill_row["launches"] = nn_fills(host_counts)  # per scene, asserted in (a)
     torch.cuda.empty_cache()
     for row in rows:
         row["launches"] = counts[row["name"]] // forwards  # per scene forward, asserted in (a)
@@ -1226,17 +1274,21 @@ def scene_phase(torch, evaluate, model, cfg):
     # at reduced depth
     cfg_r = load_config(HIGHRES_CONFIG, REDUCED)
     forward_r = whole_scene.make_forward(model, cfg_r)
+    counts_host_r = np.zeros(P, np.int64)
+    for sel, _ in enumerate_scene_chunks(scene, cfg_r):
+        np.add.at(counts_host_r, sel, 1)
+    want_r = dict(SCENE_LAUNCHES, knn=SCENE_LAUNCHES["knn"] + nn_fills(counts_host_r))
     ops.reset_launch_counts()
-    with recording(ops) as got_log:
+    with recording(ops, INDEX_OPS + ("nearest",)) as got_log:
         got = whole_scene.predict_scene(model, cfg_r, scene, batch_size=cfg_r.eval.batch_size, forward_fn=forward_r)
     counts_r = ops.launch_counts()
-    if counts_r != SCENE_LAUNCHES:
-        fail(f"reduced scene: kernel launches {counts_r}, expected {SCENE_LAUNCHES}")
+    if counts_r != want_r:
+        fail(f"reduced scene: kernel launches {counts_r}, expected {want_r} (one forward and the NN fill)")
     ops.set_impl("reference")
     try:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        with recording(ops) as want_log:
+        with recording(ops, INDEX_OPS + ("nearest",)) as want_log:
             want = whole_scene.predict_scene(model, cfg_r, scene, batch_size=cfg_r.eval.batch_size, forward_fn=forward_r)
         reference_s = time.perf_counter() - t0
         if any(ops.launch_counts().values()):
@@ -1280,6 +1332,7 @@ def scene_phase(torch, evaluate, model, cfg):
         "miou": results["miou"],
         "reduced": REDUCED,
         "reduced_launches": counts_r,
+        "reduced_covered": float((counts_host_r > 0).mean()),
         "reduced_reference_s": reference_s,
         "reduced_index_outputs_equal": n_equal,
         "reduced_argmax_agreement": agree,
@@ -1288,7 +1341,7 @@ def scene_phase(torch, evaluate, model, cfg):
         "fused_miou": fused_results["miou"],
         "crossover": crossing,
     }
-    return summary, rows, subgate, fused_row
+    return summary, rows, subgate, fused_row, fill_row
 
 
 def scene_fusion_inputs(torch, cfg, scene):
@@ -1635,16 +1688,24 @@ def counting_forwards(torch, ops, whole_scene, what: str):
     """Each whole-scene evaluation (one ``make_forward`` a call of
     ``evaluate_scenes``): its model and budget, each forward's kernel
     launches (differences, so that the caller's counts run on) and batch
-    keys; its first forward again on its batch through the plain versions
-    (reference_forward: equal index-op outputs, the same argmax), so the
-    kernels are held at the shapes this path gives them."""
-    make_forward = whole_scene.make_forward
+    keys, the row 4 launches of its scenes' NN fills (``nn_fills``, outside
+    the forwards); its first forward again on its batch through the plain
+    versions (reference_forward: equal index-op outputs, the same argmax),
+    so the kernels are held at the shapes this path gives them."""
+    make_forward, nearest = whole_scene.make_forward, ops.nearest
     evals: list = []
+
+    def counted_nearest(*a, **kw):
+        before = ops.launch_counts()["knn"]
+        out = nearest(*a, **kw)
+        if evals:
+            evals[-1]["nn_fills"] += ops.launch_counts()["knn"] - before
+        return out
 
     def counted(model, cfg):
         forward_fn = make_forward(model, cfg)
         run = {"model": cfg.model.name, "budget": cfg.data.num_points, "launches": [], "keys": [],
-               "reference": None}
+               "reference": None, "nn_fills": 0}
         evals.append(run)
 
         def inner(batch):
@@ -1661,11 +1722,11 @@ def counting_forwards(torch, ops, whole_scene, what: str):
             return out
         return inner
 
-    whole_scene.make_forward = counted
+    whole_scene.make_forward, ops.nearest = counted, counted_nearest
     try:
         yield evals
     finally:
-        whole_scene.make_forward = make_forward
+        whole_scene.make_forward, ops.nearest = make_forward, nearest
 
 
 def reference_forward(torch, ops, forward_fn, batch, got, got_log, what: str) -> dict:
@@ -2501,9 +2562,13 @@ def robustness_phase(torch) -> dict:
         if not run["launches"] or any(c != want for c in run["launches"]):
             fail(f"robustness {name} at {run['budget']}: forwards' launches {run['launches']}, want {want} each")
         got = launches["eval"][name][str(run["budget"])]
-        if got != {k: n * len(run["launches"]) for k, n in want.items()}:
-            fail(f"robustness {name} at {run['budget']}: launches {got} over {len(run['launches'])} forwards")
-        rows.append({"model": name, "budget": run["budget"], "forwards": len(run["launches"]),
+        fills = run["nn_fills"]
+        want_eval = {k: n * len(run["launches"]) for k, n in want.items()}
+        want_eval["knn"] += fills
+        if got != want_eval or not 0 <= fills <= ROBUST_EVAL_SCENES:
+            fail(f"robustness {name} at {run['budget']}: launches {got} over {len(run['launches'])} forwards and "
+                 f"{fills} NN fills")
+        rows.append({"model": name, "budget": run["budget"], "forwards": len(run["launches"]), "nn_fills": fills,
                      "launches_per_forward": run["launches"][0], "reference_forward": run["reference"]})
     every = {k: sum(launches[s][k] for s in ROBUST_STAGES)
              + sum(c[k] for m in launches["eval"].values() for c in m.values()) for k in total}
@@ -2773,7 +2838,7 @@ def runbook_eval_parity(torch, ops, stage, what: str) -> dict:
         ops.set_impl(impl)
         try:
             ops.reset_launch_counts()
-            with recording(ops, INDEX_OPS + ("knn_prepared",)) as log:
+            with recording(ops, INDEX_OPS + ("knn_prepared", "nearest")) as log:
                 mious[impl] = cli_json(test_3d.main, argv)["miou"]
             torch.cuda.synchronize()
             counts[impl] = ops.launch_counts()
@@ -2786,10 +2851,11 @@ def runbook_eval_parity(torch, ops, stage, what: str) -> dict:
         fail(f"{what}: kernel launches {counts['auto']}, want rows 1-4")
     n_equal = compare_logs(torch, logs["auto"], logs["reference"], what)
     shapes = {n: [list(o.shape) for o in outs] for n, outs in reversed(logs["auto"])}  # each op's first call
-    print(f"  {what} in process through the plain versions: {n_equal} index-op outputs equal; mIoU {mious['auto']} "
-          f"(kernels) / {mious['reference']} (plain); first output shapes {shapes}", flush=True)
+    fills = sum(n == "nearest" for n, _ in logs["auto"])
+    print(f"  {what} in process through the plain versions: {n_equal} index-op outputs equal ({fills} NN fills); "
+          f"mIoU {mious['auto']} (kernels) / {mious['reference']} (plain); first output shapes {shapes}", flush=True)
     return {"index_op_outputs_equal": n_equal, "first_output_shapes": shapes, "miou": mious,
-            "launches": counts["auto"]}
+            "launches": counts["auto"], "nn_fills": fills}
 
 
 def runbook_phase(torch) -> dict:
@@ -2838,11 +2904,15 @@ def runbook_phase(torch) -> dict:
         for mode in modes:
             counts = runbook_launches(os.path.join(smoke, "logs", f"test_3d_{mode}.log"))
             forwards = counts["knn_fusion"]
+            fills = counts["knn"] - 4 * forwards  # row 4 on the card a scene at most; the sharded mode fills on the host
             want = dict.fromkeys(counts, 0)
-            want.update(knn_fusion=forwards, fps=4 * forwards, ball_query=4 * forwards, knn=4 * forwards)
-            if forwards < 1 or counts != want:
-                fail(f"runbook test_3d {mode}: launches {counts}, want 1/4/0/4/4 a forward")
-            test_3d[mode] = {"forwards": forwards, "launches": {k: n / forwards for k, n in counts.items()}}
+            want.update(knn_fusion=forwards, fps=4 * forwards, ball_query=4 * forwards, knn=4 * forwards + fills)
+            if forwards < 1 or counts != want or not 0 <= fills <= (0 if mode == "sharded" else RAW_SCANS):
+                fail(f"runbook test_3d {mode}: launches {counts}, want 1/4/0/4/4 a forward and a NN fill a scene "
+                     f"at most")
+            counts["knn"] -= fills
+            test_3d[mode] = {"forwards": forwards, "nn_fills": fills,
+                             "launches": {k: n / forwards for k, n in counts.items()}}
         second = run_runbook(cmd, "second run")
         if set(second.values()) != {"done"}:
             fail(f"runbook second run: stages {second}")
@@ -2850,7 +2920,10 @@ def runbook_phase(torch) -> dict:
         for stage in runbook.plan(args, runbook.paths(args)):
             if stage.result is not None:
                 mode = stage.name.removeprefix("test_3d_")
-                test_3d[mode]["parity"] = runbook_eval_parity(torch, ops, stage, f"runbook test_3d {mode}")
+                test_3d[mode]["parity"] = parity = runbook_eval_parity(torch, ops, stage, f"runbook test_3d {mode}")
+                if parity["nn_fills"] != test_3d[mode]["nn_fills"]:
+                    fail(f"runbook test_3d {mode}: {parity['nn_fills']} NN fills in process, "
+                         f"{test_3d[mode]['nn_fills']} by the log's launches")
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     if digests() != before:
@@ -2907,7 +2980,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     print("scene phase:", flush=True)
     evaluate, (scene_model, scene_cfg) = scene_entry()
-    scene_summary, rows, subgate, fused_row = scene_phase(torch, evaluate, scene_model, scene_cfg)
+    scene_summary, rows, subgate, fused_row, fill_row = scene_phase(torch, evaluate, scene_model, scene_cfg)
     del evaluate, scene_model
     torch.cuda.empty_cache()
     print("train phase:", flush=True)
@@ -2943,6 +3016,8 @@ def main() -> None:
             row["train_path"] = path(train_rows[row["name"]])
         if row["name"] == "knn_fusion":
             row["fused_path"] = path(fused_row)
+        if row["name"] == "knn":
+            row["nn_fill_path"] = path(fill_row)
     subgate["launches"] = 0  # the scene path's fusion kNN is row 1
     train_rows["knn_gated"]["scene_path"] = path(subgate)
     rows += [train_rows["knn_gated"], train_rows["knn_resident"], train_rows["morton_prep"]]

@@ -7,7 +7,8 @@ scene, the lift and the 2D net run once per scene, the pixel cloud is
 ``ops.knn_prepare``'d once, and every chunk window's fusion kNN runs
 ``ops.knn_prepared`` against it (the fusion kernel on the card). Windows go
 through the 3D net in groups of ``cfg.eval.batch_size``, each group as one
-(1, G*N) query set over the scene cloud.
+(1, G*N) query set over the scene cloud. The accumulator stays on the
+device and is filled there (``whole_scene.nn_fill``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from mvpnet_torch import ops
 from mvpnet_torch.config import Config
 from mvpnet_torch.core.camera import unproject_views
 from mvpnet_torch.eval.sharded_scene import enumerate_scene_chunks, select_scene_views
-from mvpnet_torch.eval.whole_scene import accum_scene_logits, model_device, nn_fill_uncovered
+from mvpnet_torch.eval.whole_scene import accum_scene_logits, model_device, nn_fill
 
 
 def build_scene_fused_fns(model, cfg: Config):
@@ -90,6 +91,5 @@ def predict_scene_fused(
         idx = torch.from_numpy(np.stack([g[0] for g in group])).to(device)  # (Gr, N)
         accum_scene_logits(acc, cnt, fuse_fn(pts, prepared, pixel_xyz, pixel_feat), idx)
 
-    logits_acc = acc.cpu().numpy()
-    nn_fill_uncovered(scene.points, logits_acc, cnt.cpu().numpy())
-    return logits_acc
+    nn_fill(scene.points, acc, cnt)
+    return acc.cpu().numpy()

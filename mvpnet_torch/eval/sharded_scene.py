@@ -174,6 +174,7 @@ def predict_scene_sharded(
         for i in range(n_real):
             np.add.at(logits_acc, group[i][0], logits[i])
             np.add.at(counts, group[i][0], 1)
-    # an empty scene has no window: every point is filled (with zeros)
+    # the accumulator is on the host, so the fill is too; an empty scene has
+    # no window: every point is filled (with zeros)
     nn_fill_uncovered(scene.points, logits_acc, counts)
     return logits_acc

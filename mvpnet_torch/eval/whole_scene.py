@@ -8,11 +8,12 @@ neighbour, argmax, per-class IoU / mIoU, and an optional ScanNet
 benchmark-format export (20-class -> NYU40 ids).
 
 The host builds chunk samples in a thread pool while the device runs the
-forwards; the device keeps the (P, num_classes) accumulator, and the host
-reads it once per scene. ``predict_scene``'s spans (``tracing``):
+forwards; the device keeps the (P, num_classes) accumulator, fills it
+(``nn_fill``: on a card the brute kNN kernel, ties to the lower index), and
+the host reads it once per scene. ``predict_scene``'s spans (``tracing``):
 ``scene.predict`` over ``scene.windows``, ``scene.chunk_wait``,
 ``scene.transfer``, ``scene.forward``, ``scene.accumulate``,
-``scene.readback`` and ``scene.nn_fill``, and ``scene.chunk_build`` on the
+``scene.nn_fill`` and ``scene.readback``, and ``scene.chunk_build`` on the
 pool's threads.
 """
 from __future__ import annotations
@@ -25,7 +26,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from mvpnet_torch import tracing
+from mvpnet_torch import ops, tracing
 from mvpnet_torch.config import Config
 from mvpnet_torch.data.meta import CLASS_NAMES, remap_to_nyu40
 from mvpnet_torch.data.pipeline import _scene_grid_index, collate, make_chunk_sample
@@ -101,6 +102,7 @@ def nn_fill_uncovered(points: np.ndarray, logits_acc: np.ndarray, counts: np.nda
     Chunk sampling touches only num_points per window, so some scene points
     may receive no logits; filling from the nearest scored point is standard
     ScanNet whole-scene eval practice for sampled predictions.
+    Returns the number of points filled.
     """
     uncovered = counts == 0
     if uncovered.any() and (~uncovered).any():
@@ -109,6 +111,38 @@ def nn_fill_uncovered(points: np.ndarray, logits_acc: np.ndarray, counts: np.nda
         tree = cKDTree(points[~uncovered])
         _, nn = tree.query(points[uncovered], k=1)
         logits_acc[uncovered] = logits_acc[~uncovered][nn]
+        return int(uncovered.sum())
+    return 0
+
+
+def nn_fill_device(points: np.ndarray, acc: torch.Tensor, cnt: torch.Tensor) -> int:
+    """``nn_fill_uncovered`` on the accumulator's device, in place: acc (P, C)
+    and cnt (P,) where they live, points (P, 3) on the host. The search is
+    ``ops.nearest`` (the brute kNN kernel on the card) over the covered
+    points in index order, so a tie goes to the lower index; a cKDTree
+    leaves that order unspecified. Returns the number of points filled."""
+    covered = cnt > 0
+    ref_idx = covered.nonzero()[:, 0]
+    query_idx = (~covered).nonzero()[:, 0]
+    if not (len(query_idx) and len(ref_idx)):
+        return 0
+    pts = torch.from_numpy(np.ascontiguousarray(points, np.float32)).to(acc.device)
+    nn = ops.nearest(pts[query_idx], pts[ref_idx])
+    acc[query_idx] = acc[ref_idx[nn]]
+    return len(query_idx)
+
+
+def nn_fill(points: np.ndarray, acc: torch.Tensor, cnt: torch.Tensor) -> None:
+    """Fill the uncovered points where the accumulator lives, in place: on a
+    card ``nn_fill_device``; on the host (a CPU model) ``nn_fill_uncovered``,
+    whose cKDTree is O(M log N) where a brute search on CPU cores is O(M N).
+    Counts the filled points in ``scene.nn_fill_points`` while a profiler
+    records."""
+    if acc.is_cuda:
+        n = nn_fill_device(points, acc, cnt)
+    else:
+        n = nn_fill_uncovered(points, acc.numpy(), cnt.numpy())
+    tracing.count("scene.nn_fill_points", n)
 
 
 def scene_windows(scene: Scene, cfg: Config) -> list:
@@ -218,12 +252,10 @@ def _predict_scene(model, cfg: Config, scene: Scene, batch_size: int, forward_fn
             flush()
     flush()
 
-    with tracing.span("scene.readback"):
-        logits_acc = acc.cpu().numpy()
-        counts = cnt.cpu().numpy()
     with tracing.span("scene.nn_fill"):
-        nn_fill_uncovered(scene.points, logits_acc, counts)
-    return logits_acc
+        nn_fill(scene.points, acc, cnt)
+    with tracing.span("scene.readback"):
+        return acc.cpu().numpy()
 
 
 def evaluate_scenes(

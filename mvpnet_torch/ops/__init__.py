@@ -35,6 +35,8 @@ The last two prepare their operands on the card (``morton.prepare_device``,
 their visit order, so ``knn``'s ``refs_coherent`` (keep the refs in their
 order) can change which of two equal refs they return, as in JAX.
 
+``nearest`` (k=1, whatever the size) always takes the brute kernel.
+
 ``knn_prepare`` prepares a large cloud on the card once (Morton sort,
 tile boxes) and ``knn_prepared`` then runs the fusion kernel's demand mode
 on it, as the JAX package's prepared path does.
@@ -185,6 +187,17 @@ def knn(queries, refs, k: int, ref_mask=None, impl: str | None = None, refs_cohe
     equal refs can. The default fusion kernel and the plain versions take
     the lower index whatever the order, and ignore it."""
     return _knn_dispatch(queries, _ref.mask_points(refs, ref_mask), k, impl, refs_coherent)
+
+
+def nearest(queries, refs, impl: str | None = None):
+    """Index of each query's nearest ref, (M,) int64, the lower index on
+    ties; (M, 3) queries and (N, 3) refs. The brute kernel (row 4,
+    ``KERNELS["knn"]``) with k=1 on the card, whatever the size: unlike
+    ``knn`` it never routes to the fusion kernels, so it adds no row 1
+    launch and nothing to ``knn_fusion.pairs_scanned``. No gradient."""
+    q, r = queries[None], refs[None]
+    _, idx = _ref.knn(q, r, 1) if _plain(queries, impl) else _knn.knn(q, r, 1)
+    return idx[0, :, 0].long()
 
 
 def farthest_point_sample(points, npoint: int, valid_mask=None, impl: str | None = None):

@@ -17,11 +17,14 @@ opens a ``torch.profiler.record_function`` of its name, so an exported chrome
 trace shows the spans beside the kernels. Finished spans are appended to one
 list in memory; ``spans(start_s, end_s)`` returns those inside a window.
 
-Counters: ``counters()`` gives each span name's count, and
+Counters: ``counters()`` gives each span name's count;
 ``knn_fusion.pairs_scanned``, the (query, ref) pairs the fusion kNN's
-kernels scanned while recording. That counter is a one-element int64 tensor
-on the queries' device (``pairs_counter``) that the kernels add to; it is
-read with ``.item()`` only when ``counters()`` is called.
+kernels scanned while recording, a one-element int64 tensor on the queries'
+device (``pairs_counter``) that the kernels add to, read with ``.item()``
+only when ``counters()`` is called; and the host counters that ``count``
+adds to while recording: ``scene.nn_fill_points``, the points
+``predict_scene`` and ``predict_scene_fused`` filled from their nearest
+scored point.
 
 The spans, by where the work happens:
   data.next > data.queue_wait, data.transfer   PrefetchIterator.__next__
@@ -32,7 +35,7 @@ The spans, by where the work happens:
   model.net_2d, model.fusion_knn,              MVPNet3D.forward
     model.aggregation, model.net_3d
   scene.predict > scene.windows, scene.chunk_wait, scene.transfer,
-    scene.forward, scene.accumulate, scene.readback, scene.nn_fill
+    scene.forward, scene.accumulate, scene.nn_fill, scene.readback
                                                predict_scene
   scene.chunk_build                            predict_scene's pool, under
                                                the submitting scene.predict
@@ -56,6 +59,8 @@ _ids = itertools.count(1)
 _local = threading.local()
 _spans: list = []
 _pairs: dict = {}  # device -> one-element int64 counter
+_counts: Counter = Counter()  # host counters, by name
+_counts_lock = threading.Lock()
 
 
 class Span(NamedTuple):
@@ -154,10 +159,20 @@ def pairs_counter(device) -> torch.Tensor | None:
     return counter
 
 
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the host counter ``name`` while recording."""
+    if recording():
+        with _counts_lock:
+            _counts[name] += n
+
+
 def counters() -> dict[str, int]:
-    """Each span name's count over every recorded span, and
-    ``knn_fusion.pairs_scanned`` (waits for the devices that hold it)."""
+    """Each span name's count over every recorded span, each host counter
+    that ``count`` added to, and ``knn_fusion.pairs_scanned`` (waits for the
+    devices that hold it)."""
     out = dict(Counter(s.name for s in list(_spans)))
+    with _counts_lock:
+        out.update(_counts)
     out[PAIRS_SCANNED] = sum(int(c.item()) for c in list(_pairs.values()))
     return out
 
@@ -165,5 +180,7 @@ def counters() -> dict[str, int]:
 def clear() -> None:
     """Forget every recorded span and zero the counters."""
     _spans.clear()
+    with _counts_lock:
+        _counts.clear()
     for counter in _pairs.values():
         counter.zero_()

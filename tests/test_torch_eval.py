@@ -31,6 +31,7 @@ from mvpnet_tpu.train.step import prepare_batch as jax_prepare_batch
 from mvpnet_torch import config as port_config
 from mvpnet_torch import convert
 from mvpnet_torch import entry as entry_mod
+from mvpnet_torch import ops
 from mvpnet_torch.data.synthetic import make_scene
 from mvpnet_torch.eval import scene_fused, sharded_scene, whole_scene
 from mvpnet_torch.models import build_model
@@ -139,6 +140,152 @@ def test_nn_fill_uncovered_matches_jax(rng):
     jwhole.nn_fill_uncovered(pts, want, counts)
     np.testing.assert_array_equal(got, want)
     assert np.abs(got[counts == 0]).sum() > 0
+
+
+def _fill(pts, acc, counts):
+    """nn_fill_device on torch copies; the filled accumulator as numpy."""
+    got = torch.from_numpy(acc.copy())
+    whole_scene.nn_fill_device(pts, got, torch.from_numpy(counts))
+    return got.numpy()
+
+
+def _near_tie_free(pts, counts, rel=1e-5):
+    """No uncovered point's two nearest covered points are within ``rel`` of
+    each other in float64, so float32 distances order them as float64 does."""
+    q, r = pts[counts == 0].astype(np.float64), pts[counts > 0].astype(np.float64)
+    d = np.sort(((q[:, None, :] - r[None, :, :]) ** 2).sum(-1), axis=1)[:, :2]
+    return bool(np.all(d[:, 1] - d[:, 0] > rel * d[:, 1]))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_nn_fill_device_matches_jax(seed):
+    g = np.random.default_rng(seed)
+    pts = g.uniform(0, 3, (600, 3)).astype(np.float32)
+    acc = g.normal(size=(600, 5)).astype(np.float32)
+    counts = (g.random(600) > 0.4).astype(np.int32)
+    acc[counts == 0] = 0
+    assert _near_tie_free(pts, counts)
+    want = acc.copy()
+    jwhole.nn_fill_uncovered(pts, want, counts)
+    np.testing.assert_array_equal(_fill(pts, acc, counts), want)
+    assert np.abs(want[counts == 0]).sum() > 0
+
+
+def test_nn_fill_device_ties_go_to_the_lower_index():
+    """Covered points at one place with different logits: every uncovered
+    point near them takes the lowest index's row (portbench's reference
+    ``nearest`` rule)."""
+    pts = np.array([[5, 5, 5], [1, 1, 1], [0, 0, 0], [1, 1, 1], [1, 1, 1], [1.1, 1, 1], [0.9, 1, 1], [5, 5, 5.2]],
+                   np.float32)
+    counts = np.array([1, 0, 1, 2, 1, 0, 0, 1], np.int32)
+    acc = np.arange(8 * 3, dtype=np.float32).reshape(8, 3) * (counts[:, None] > 0)
+    got = _fill(pts, acc, counts)
+    for i in (1, 5, 6):  # nearest: the duplicates 3 and 4 at (1, 1, 1)
+        np.testing.assert_array_equal(got[i], acc[3])
+    np.testing.assert_array_equal(got[counts > 0], acc[counts > 0])
+
+
+@pytest.mark.parametrize("covered", [True, False], ids=["all_covered", "none_covered"])
+def test_nn_fill_device_leaves_a_full_or_empty_accumulator(monkeypatch, covered):
+    g = np.random.default_rng(2)
+    pts = g.uniform(0, 3, (100, 3)).astype(np.float32)
+    acc = g.normal(size=(100, 4)).astype(np.float32) if covered else np.zeros((100, 4), np.float32)
+    counts = np.full(100, int(covered), np.int32)
+
+    def no_search(*a, **kw):
+        raise AssertionError("nothing to fill: no search")
+
+    monkeypatch.setattr(whole_scene.ops, "nearest", no_search)
+    np.testing.assert_array_equal(_fill(pts, acc, counts), acc)
+
+
+def test_nn_fill_device_reference_impl_gives_the_same_result():
+    g = np.random.default_rng(3)
+    pts = g.uniform(0, 3, (800, 3)).astype(np.float32)
+    acc = g.normal(size=(800, 4)).astype(np.float32)
+    counts = (g.random(800) > 0.5).astype(np.int32)
+    acc[counts == 0] = 0
+    want = _fill(pts, acc, counts)
+    ops.set_impl("reference")
+    try:
+        got = _fill(pts, acc, counts)
+    finally:
+        ops.set_impl("auto")
+    np.testing.assert_array_equal(got, want)
+
+
+def test_nn_fill_device_searches_with_row_4_never_the_fusion_knn(monkeypatch):
+    """At a fusion size (>= MIN_M uncovered, >= MIN_N covered points),
+    where ops.knn would route to row 1, the fill calls the brute kernel's
+    wrapper (row 4) once with k=1 and never row 1."""
+    from mvpnet_torch.ops import knn_bucketed
+
+    M, N = knn_bucketed.MIN_M, knn_bucketed.MIN_N
+    g = np.random.default_rng(4)
+    pts = g.uniform(0, 6, (M + N, 3)).astype(np.float32)
+    counts = np.r_[np.zeros(M, np.int32), np.ones(N, np.int32)]
+    acc = np.r_[np.zeros((M, 2), np.float32), g.normal(size=(N, 2)).astype(np.float32)]
+    calls = []
+    brute = ops.KERNELS["knn"].knn
+
+    def spy(queries, refs, k):
+        calls.append((tuple(queries.shape), tuple(refs.shape), k))
+        return brute(queries, refs, k)
+
+    def fusion(*a, **kw):
+        raise AssertionError("the fill must not reach row 1")
+
+    monkeypatch.setattr(ops.KERNELS["knn"], "knn", spy)
+    monkeypatch.setattr(knn_bucketed, "knn", fusion)
+    got = _fill(pts, acc, counts)
+    assert calls == [((1, M, 3), (1, N, 3), 1)]
+    d = ((pts[:M, None, :] - pts[None, M:, :]) ** 2).sum(-1)
+    np.testing.assert_array_equal(got[:M], acc[M:][d.argmin(1)])
+
+
+def test_nn_fill_on_the_host_keeps_the_host_fill(monkeypatch):
+    """A host accumulator (a CPU model) is filled on the host: the same rows
+    as nn_fill_uncovered, and no brute search."""
+    g = np.random.default_rng(6)
+    pts = g.uniform(0, 3, (500, 3)).astype(np.float32)
+    counts = (g.random(500) > 0.4).astype(np.int32)
+    acc = g.normal(size=(500, 4)).astype(np.float32) * (counts[:, None] > 0)
+    want = acc.copy()
+    whole_scene.nn_fill_uncovered(pts, want, counts)
+
+    def no_search(*a, **kw):
+        raise AssertionError("a host accumulator takes the host fill")
+
+    monkeypatch.setattr(whole_scene.ops, "nearest", no_search)
+    got = torch.from_numpy(acc.copy())
+    whole_scene.nn_fill(pts, got, torch.from_numpy(counts))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_nn_fill_counts_the_filled_points_while_recording():
+    from torch.profiler import ProfilerActivity, profile
+
+    from mvpnet_torch import tracing
+
+    g = np.random.default_rng(5)
+    pts = g.uniform(0, 3, (300, 3)).astype(np.float32)
+    counts = (g.random(300) > 0.3).astype(np.int32)
+    acc = g.normal(size=(300, 4)).astype(np.float32) * (counts[:, None] > 0)
+
+    def fill(c):
+        whole_scene.nn_fill(pts, torch.from_numpy(acc.copy()), torch.from_numpy(c))
+
+    tracing.clear()
+    try:
+        fill(counts)
+        assert "scene.nn_fill_points" not in tracing.counters()
+        with profile(activities=[ProfilerActivity.CPU]):
+            fill(counts)
+            fill(np.ones_like(counts))  # nothing to fill: adds 0
+            fill(counts)
+        assert tracing.counters()["scene.nn_fill_points"] == 2 * int((counts == 0).sum())
+    finally:
+        tracing.clear()
 
 
 def test_scene_views_and_chunks_match_jax(models, scenes):

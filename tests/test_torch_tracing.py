@@ -13,6 +13,7 @@ import contextlib
 import math
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -230,6 +231,11 @@ def test_prefetch_records_one_data_next_a_batch_and_builds_on_the_workers(scene_
         with recorded():
             for _ in range(3):
                 next(it)
+            # keep recording until a worker has built a whole batch inside
+            # the window: the three batches may all have been built before it
+            deadline = time.monotonic() + 60
+            while not any(x.name == "data.build" for x in tracing.spans()) and time.monotonic() < deadline:
+                time.sleep(0.01)
     finally:
         it.close()
     s = by_name(tracing.spans())
